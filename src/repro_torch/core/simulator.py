@@ -1,0 +1,413 @@
+"""The multi-walk simulator (counterpart of the JAX package's
+``core/simulator.py``), batched over trajectories.
+
+One synchronous round (t -> t+1), as in the reference:
+  1. the topology evolves; a crashing node kills its resident walks;
+  2. every surviving walk hops to a uniform available neighbor;
+  3. walk-level failures strike (probabilistic, burst, Byzantine,
+     Pac-Man);
+  4. every visited node records return-time samples and last-seen times;
+  5. the chosen walk's node computes theta-hat (Eq. 1) and decides;
+  6. forks and terminations execute through the slot machinery.
+
+The state carries a leading batch axis (one row per trajectory); the
+reference's ``lax.scan`` is a Python loop over rounds, and every random
+stream folds the carried step counter ``t``, so where a run is cut
+cannot change a drawn bit. Two round implementations exist:
+
+  - ``protocol_step_unfused``: the literal stage sequence, the oracle
+    (``round_impl="unfused"``); its estimator is ``gather``, ``compare``,
+    ``pallas`` (the theta_sums kernel) or ``fused`` (the round_update
+    kernel);
+  - ``protocol_step_fused``: the whole round in the whole_round kernel,
+    with every uniform drawn outside from the same streams, the
+    Byzantine chain advanced outside and the start gates folded into the
+    rates (the reference's Pallas branch, simulator.py:653-745).
+
+The observation state (``last_seen``, ``hist``, ``total``) is updated in
+place round to round: a round writes W rows of an n-row table.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import estimator as est
+from repro_torch.core import failures as flr
+from repro_torch.core import protocol as prt
+from repro_torch.core import walkers as wlk
+from repro_torch.core.outputs import SCALARS, OutputSpec, StepOutputs, stack_rounds
+from repro_torch.graphs.generators import Graph
+from repro_torch.graphs.state import (
+    GraphState,
+    availability,
+    init_graph_state,
+    mirror_indices,
+)
+from repro_torch.kernels import platform
+from repro_torch.kernels.round_update import round_update, whole_round
+from repro_torch.kernels.theta_survival import theta_sums
+from repro_torch.utils import prng
+
+
+class SimState(NamedTuple):
+    t: torch.Tensor  # (batch,) int32 step counter
+    walks: wlk.WalkState
+    last_seen: torch.Tensor  # (batch, n, W) int32
+    rts: est.ReturnTimeState
+    byz_state: torch.Tensor  # (batch,) bool
+    key: torch.Tensor  # (batch, 2) threefry key words
+    graph: GraphState
+
+
+@dataclasses.dataclass(frozen=True)
+class Setup:
+    """What every round of a batch of trajectories shares: the graph on
+    the device, the static protocol config and the per-trajectory rows.
+    ``steps`` (the run's budget) trims the gather estimator's bins."""
+
+    neighbors: torch.Tensor  # (n, D) int32
+    degrees: torch.Tensor  # (n,) int32
+    mirror: torch.Tensor  # (n, D) int32
+    pcfg: prt.ProtocolConfig
+    prows: prt.ProtocolRows
+    frows: flr.FailureRows
+    steps: int
+    partitionable: bool = True
+
+    @property
+    def n(self) -> int:
+        return int(self.neighbors.shape[0])
+
+
+def make_setup(graph: Graph, pcfgs, fcfgs, steps: int, device, partitionable=True) -> Setup:
+    """Check the configs are ported, move the graph to ``device`` and
+    stack one protocol / failure row per trajectory. The rows must share
+    the static protocol fields (they run one program)."""
+    pcfg = pcfgs[0]
+    if any(p.static_fields != pcfg.static_fields for p in pcfgs):
+        raise ValueError("trajectories of one batch must share the static protocol fields")
+    for p in pcfgs:
+        prt.check_ported(p)
+    for f in fcfgs:
+        flr.check_ported(f)
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int32), device=device)
+
+    return Setup(
+        neighbors=dev(graph.neighbors),
+        degrees=dev(graph.degrees),
+        mirror=dev(mirror_indices(graph)),
+        pcfg=pcfg,
+        prows=prt.protocol_rows(pcfgs, device),
+        frows=flr.failure_rows(fcfgs, device),
+        steps=int(steps),
+        partitionable=partitionable,
+    )
+
+
+def init_state(keys: torch.Tensor, setup: Setup) -> SimState:
+    """Initial state for one trajectory per key row (``keys`` (batch, 2))."""
+    pcfg = setup.pcfg
+    W = pcfg.max_walks
+    n, D = setup.neighbors.shape
+    batch = keys.shape[0]
+    sub = prng.split(keys, 2, partitionable=setup.partitionable)
+    walks = wlk.init_walks(
+        setup.prows.z0, W, n, sub[:, 0], partitionable=setup.partitionable
+    )
+    last_seen = torch.full((batch, n, W), est.NEVER, dtype=torch.int32, device=keys.device)
+    # the starting node of each initial walk has seen it at t=0
+    est.scatter_max_last_seen(
+        last_seen, walks.pos, walks.track,
+        torch.where(walks.active, 0, est.NEVER).to(torch.int32),
+    )
+    return SimState(
+        t=torch.zeros((batch,), dtype=torch.int32, device=keys.device),
+        walks=walks,
+        last_seen=last_seen,
+        rts=est.init_return_time_state(batch, n, pcfg.rt_bins, keys.device),
+        byz_state=setup.frows.byz_start.clone(),
+        key=sub[:, 1],
+        graph=init_graph_state(batch, n, D, keys.device),
+    )
+
+
+def resolved_estimator_impl(pcfg: prt.ProtocolConfig) -> str:
+    impl = pcfg.estimator_impl
+    return platform.best_estimator_impl() if impl == "auto" else impl
+
+
+def resolved_round_impl(pcfg: prt.ProtocolConfig) -> str:
+    impl = pcfg.round_impl
+    return platform.best_round_impl() if impl == "auto" else impl
+
+
+class RoundDecision(NamedTuple):
+    """How one configuration's rounds execute, and why."""
+
+    impl: str  # 'fused' | 'unfused'
+    backend: str | None  # 'kernel' when fused
+    reason: str
+
+    @property
+    def fused(self) -> bool:
+        return self.impl == "fused"
+
+
+def round_impl_decision(
+    pcfg: prt.ProtocolConfig, fcfg: flr.FailureConfig | None = None
+) -> RoundDecision:
+    """The whole-round fuse predicate with its reason (simulator.py:237-307
+    of the reference, for its Pallas backend): the kernel computes the
+    node-sum theta family, so the gather family takes the unfused round."""
+
+    def unfused(reason):
+        return RoundDecision("unfused", None, reason)
+
+    impl = resolved_round_impl(pcfg)
+    if impl != "fused":
+        return unfused(f"round_impl resolved to {impl!r}")
+    if pcfg.algorithm not in prt.PORTED_ALGORITHMS:
+        return unfused(f"algorithm {pcfg.algorithm!r} has no fused round")
+    if pcfg.analytic_survival:
+        return unfused("analytic_survival only runs the stage sequence")
+    if pcfg.auto_eps:
+        return unfused("auto_eps thresholds only run the stage sequence")
+    eimpl = resolved_estimator_impl(pcfg)
+    if eimpl not in platform.NODE_SUM_FAMILY:
+        return unfused(
+            f"estimator_impl {eimpl!r} is outside the whole_round kernel's "
+            "node-sum family"
+        )
+    if pcfg.walk_variant != "uniform":
+        return unfused(f"walk_variant {pcfg.walk_variant!r} has no fused round")
+    if fcfg is not None:
+        if fcfg.pacman_mobile:
+            return unfused("mobile Pac-Man is not in the whole_round kernel")
+        if fcfg.n_pacman:
+            return unfused("multiple Pac-Man nodes are not in the whole_round kernel")
+        if fcfg.n_edge_cuts:
+            return unfused("scheduled edge cuts are not in the whole_round kernel")
+    backend = platform.FUSED_ROUND_BACKEND
+    return RoundDecision("fused", backend, f"all stages supported by the {backend} fused round")
+
+
+def _stream_keys(state: SimState, setup: Setup) -> torch.Tensor:
+    """(6, batch, 2): ``fold_in_time(key, t, tag)`` for the reference
+    round's stream tags 0-5, in order: move, probabilistic failure,
+    burst, Byzantine, decision, topology."""
+    tags = torch.arange(6, device=state.key.device).view(6, 1)
+    return prng.fold_in_time(state.key, state.t, tags)
+
+
+def _finish_round(state, setup, ws, last_seen, rts, byz_state, gs, theta, chosen,
+                  fork_mask, term_mask, n_failed):
+    """Forks and terminations through the slot machinery, and the
+    round's outputs (shared by both round implementations)."""
+    t = state.t
+    ws = wlk.execute_terminations(ws, term_mask)
+    n_terms = term_mask.sum(dim=1, dtype=torch.int32)
+    ws, last_seen, n_forks, fork_parent = wlk.execute_forks(
+        ws, last_seen, fork_mask, ws.pos, t
+    )
+    theta_mean = torch.where(chosen, theta, 0.0).sum(dim=1) / torch.clamp(
+        chosen.sum(dim=1, dtype=torch.int32), min=1
+    )
+    new = SimState(
+        t=t + 1, walks=ws, last_seen=last_seen, rts=rts, byz_state=byz_state,
+        key=state.key, graph=gs,
+    )
+    out = StepOutputs(
+        z=ws.active.sum(dim=1, dtype=torch.int32),
+        forks=n_forks,
+        terms=n_terms,
+        failures=n_failed,
+        theta_mean=theta_mean,
+        fork_parent=fork_parent,
+        terminated=term_mask,
+    )
+    return new, out
+
+
+def protocol_step_unfused(state: SimState, setup: Setup):
+    """One round as the literal stage sequence (the oracle)."""
+    part = setup.partitionable
+    pcfg, prows, frows = setup.pcfg, setup.prows, setup.frows
+    nbr, deg = setup.neighbors, setup.degrees
+    k_move, k_pfail, k_burst, k_byz, k_dec, k_topo = _stream_keys(state, setup)
+    t = state.t
+    ws = state.walks
+    n_before = ws.active.sum(dim=1, dtype=torch.int32)
+
+    # 1. topology; a crashing node kills its resident walks
+    gs = flr.step_topology(state.graph, t, frows, k_topo, nbr, setup.mirror, partitionable=part)
+    ws = ws._replace(active=flr.kill_resident_walks(ws.active, ws.pos, gs.node_up))
+    # 2. movement over the available edges
+    ws = wlk.move_walks(ws, nbr, deg, k_move, availability(gs, nbr, deg), partitionable=part)
+    # 3. walk-level threat models
+    active = flr.apply_probabilistic_failures(ws.active, t, frows, k_pfail, partitionable=part)
+    active = flr.apply_burst_failures(active, t, frows, k_burst, partitionable=part)
+    active, byz_state = flr.step_byzantine(
+        active, ws.pos, t, state.byz_state, frows, k_byz, partitionable=part
+    )
+    active = flr.apply_pacman(active, ws.pos, t, frows)
+    ws = ws._replace(active=active)
+    n_failed = n_before - active.sum(dim=1, dtype=torch.int32)
+
+    # 4. observations for all visitors
+    impl = resolved_estimator_impl(pcfg)
+    last_seen = state.last_seen
+    prev = est.gather_rows(last_seen, ws.pos).gather(2, ws.track.long()[..., None])[..., 0]
+    tc = t.view(-1, 1)
+    r = tc - prev
+    valid = active & (prev != est.NEVER) & (r >= 1)
+    upd = torch.where(active, tc, est.NEVER).to(torch.int32)
+    if impl == "fused":
+        last_seen, hist, total, node_sums = round_update(
+            last_seen, state.rts.hist, state.rts.total, ws.pos, ws.track,
+            r, valid, upd, t,
+        )
+        rts = est.ReturnTimeState(hist, total)
+    else:
+        rts = est.record_returns(state.rts, ws.pos, r, valid)
+        est.scatter_max_last_seen(last_seen, ws.pos, ws.track, upd)
+
+    # 5. estimation and decisions for the chosen walks
+    chosen = prt.choose_walks(ws.pos, active, setup.n)
+    enabled = t >= prows.protocol_start
+    if impl == "fused":
+        theta = est.theta_hat_from_node_sums(node_sums, ws.pos)
+    elif impl == "gather":
+        theta = est.theta_hat_rows(
+            last_seen, rts.hist, rts.total, t, ws.pos, ws.track,
+            max_elapsed=setup.steps,
+        )
+    elif impl == "compare":
+        sums = est.node_sums_compare(last_seen, rts.hist, rts.total, t)
+        theta = est.theta_hat_from_node_sums(sums, ws.pos)
+    elif impl == "pallas":
+        sums = theta_sums(last_seen, rts.hist, rts.total, t)
+        theta = est.theta_hat_from_node_sums(sums, ws.pos)
+    else:
+        raise ValueError(f"unknown estimator_impl {impl!r}")
+    fork_mask, term_mask = prt.decafork_decisions(
+        theta, chosen, k_dec, prows, enabled, pcfg.algorithm == "decafork+",
+        partitionable=part,
+    )
+    return _finish_round(state, setup, ws, last_seen, rts, byz_state, gs, theta,
+                         chosen, fork_mask, term_mask, n_failed)
+
+
+def protocol_step_fused(state: SimState, setup: Setup):
+    """One round through the whole_round kernel; every uniform is drawn
+    here from the streams the unfused sequence consumes."""
+    part = setup.partitionable
+    pcfg, prows, frows = setup.pcfg, setup.prows, setup.frows
+    k_move, k_pfail, k_burst, k_byz, k_dec, k_topo = _stream_keys(state, setup)
+    t = state.t
+    ws = state.walks
+    W = ws.pos.shape[1]
+    K = frows.burst_times.shape[1]
+    n_before = ws.active.sum(dim=1, dtype=torch.int32)
+
+    # the walk-sized uniforms in one draw: move, pfail, fork, term, bursts
+    dec = prng.split(k_dec, 2, partitionable=part)
+    walk_keys = [k_move[None], k_pfail[None], dec[:, 0][None], dec[:, 1][None]]
+    if K:
+        ids = torch.arange(K, device=t.device).view(K, 1)
+        walk_keys.append(prng.fold_in(k_burst, ids))
+    u = prng.uniform(torch.cat(walk_keys), (W,), partitionable=part)
+    u_burst = u[4:].transpose(0, 1).contiguous()
+    u_nfail, u_nrec, e_fail, e_rec = flr.topology_uniforms(
+        k_topo, setup.neighbors, setup.mirror, partitionable=part
+    )
+    sched = flr.scheduled_crash_mask(setup.n, t, frows)
+    # the Byzantine chain advances outside; the kernel needs the node
+    byz_state, byz_kill = flr.byzantine_kill_node(
+        t, state.byz_state, frows, k_byz, partitionable=part
+    )
+    enabled = t >= prows.protocol_start
+    params_f = torch.stack(
+        [
+            flr.gate(t, frows.p_fail_start, frows.p_fail),
+            flr.gate(t, frows.node_fail_start, frows.p_node_fail),
+            flr.gate(t, frows.link_fail_start, frows.p_link_fail),
+            frows.p_node_recover, frows.p_link_recover,
+            prows.eps, prows.eps2, prows.p,
+        ],
+        dim=1,
+    )
+    params_i = torch.stack(
+        [t, byz_kill, flr.pacman_kill_node(t, frows), enabled.to(torch.int32)], dim=1
+    ).to(torch.int32)
+    (last_seen, hist, total, node_up, edge_up, pos, active, theta, chosen,
+     fork_mask, term_mask) = whole_round(
+        state.last_seen, state.rts.hist, state.rts.total,
+        state.graph.node_up, state.graph.edge_up,
+        ws.pos, ws.track, ws.active, setup.neighbors, setup.degrees,
+        u[0], u[1], u[2], u[3], u_burst, flr.burst_sizes_eff(t, frows),
+        u_nfail, u_nrec, sched, e_fail.contiguous(), e_rec.contiguous(),
+        params_f, params_i,
+        decafork_plus=pcfg.algorithm == "decafork+",
+    )
+    ws = ws._replace(pos=pos, active=active)
+    n_failed = n_before - active.sum(dim=1, dtype=torch.int32)
+    return _finish_round(
+        state, setup, ws, last_seen, est.ReturnTimeState(hist, total), byz_state,
+        GraphState(node_up, edge_up), theta, chosen, fork_mask, term_mask, n_failed,
+    )
+
+
+def protocol_step(state: SimState, setup: Setup, decision: RoundDecision | None = None):
+    """One round, dispatched by :func:`round_impl_decision`."""
+    if decision is None:
+        decision = round_impl_decision(setup.pcfg)
+    if decision.fused:
+        return protocol_step_fused(state, setup)
+    return protocol_step_unfused(state, setup)
+
+
+def run_rounds(state: SimState, setup: Setup, length: int, spec: OutputSpec = SCALARS,
+               decision: RoundDecision | None = None):
+    """Advance ``length`` rounds; returns the final state and the
+    recorded outputs with (batch, length, ...) fields."""
+    if decision is None:
+        decision = round_impl_decision(setup.pcfg)
+    rounds = []  # only the recorded fields of each round are kept
+    for _ in range(length):
+        state, out = protocol_step(state, setup, decision)
+        rounds.append(tuple(getattr(out, f) for f in spec.fields))
+    return state, stack_rounds(spec, rounds)
+
+
+def run_core(keys: torch.Tensor, setup: Setup, spec: OutputSpec = SCALARS,
+             decision: RoundDecision | None = None):
+    """One trajectory per key row, ``setup.steps`` rounds from the
+    initial state: ``(final SimState, RecordedOutputs)``."""
+    return run_rounds(init_state(keys, setup), setup, setup.steps, spec, decision)
+
+
+# ---------------------------------------------------------------------------
+# Trajectory metrics
+# ---------------------------------------------------------------------------
+
+
+def reaction_time(z, z0: int, failure_time: int) -> int:
+    """Steps from ``failure_time`` until Z_t first returns to >= z0 (-1: never)."""
+    post = np.asarray(z)[failure_time:]
+    hits = np.nonzero(post >= z0)[0]
+    return int(hits[0]) if hits.size else -1
+
+
+def max_overshoot(z, z0: int) -> int:
+    return int(np.max(np.asarray(z)) - z0)
+
+
+def survived(z) -> bool:
+    """Resilience objective: at least one walk alive at all times."""
+    return bool((np.asarray(z) > 0).all())

@@ -1,0 +1,97 @@
+"""Each CUDA kernel of the port against its plain PyTorch version on the
+card, bitwise, at small and paper shapes. Needs an NVIDIA GPU: every test
+here is marked ``cuda`` and skips elsewhere. It imports no JAX, so it runs
+on a machine with torch and nvcc only:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch.graphs import make_graph  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    round_update,
+    round_update_plain,
+    theta_sums,
+    theta_sums_plain,
+    whole_round,
+    whole_round_plain,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels only build and run on the card")
+    return torch.device("cuda")
+
+
+def _observation(rng, batch, n, C, B, W, t, dev):
+    ls = rng.integers(-1, t, (batch, n, C)).astype(np.int32)
+    hist = np.floor(rng.random((batch, n, B)) * 3).astype(np.int16)
+    total = hist.sum(2, dtype=np.int32)
+    pos = rng.integers(0, n, (batch, W)).astype(np.int32)
+    track = rng.integers(0, C, (batch, W)).astype(np.int32)
+    active = rng.random((batch, W)) < 0.8
+    prev = np.take_along_axis(np.take_along_axis(ls, pos[..., None], 1)[..., 0], track, 1)
+    r = (t - prev).astype(np.int32)
+    valid = active & (prev != -1) & (r >= 1)
+    upd = np.where(active, t, -1).astype(np.int32)
+    tt = np.full((batch,), t, np.int32)
+    assert C * total.max() < 2**24  # the node-sum's exact-integer condition
+    return [torch.as_tensor(a, device=dev) for a in (ls, hist, total, pos, track, r, valid, upd, tt)]
+
+
+def _assert_same(got, want):
+    for g, w in zip(got, want):
+        g, w = g.cpu(), w.cpu()
+        if g.dtype.is_floating_point:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("batch,n,C,B,W", [(2, 19, 16, 64, 16), (50, 100, 64, 1024, 64)])
+def test_cuda_observation_kernels_bitwise(cuda, batch, n, C, B, W):
+    x = _observation(np.random.default_rng(n), batch, n, C, B, W, 70, cuda)
+    before = (round_update.launches, theta_sums.launches)
+    _assert_same(round_update(*[a.clone() for a in x]), round_update_plain(*[a.clone() for a in x]))
+    args = (x[0], x[1], x[2], x[8])
+    _assert_same((theta_sums(*args),), (theta_sums_plain(*args),))
+    assert (round_update.launches, theta_sums.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("plus", [False, True])
+@pytest.mark.parametrize("batch,n,W,C,B", [(2, 19, 16, 16, 64), (50, 100, 64, 64, 1024)])
+def test_cuda_whole_round_bitwise(cuda, plus, batch, n, W, C, B):
+    rng = np.random.default_rng(n + plus)
+    g = make_graph("regular", n + n % 2, seed=0, degree=4)
+    n, D, K = g.n, g.max_degree, 2
+    x = _observation(rng, batch, n, C, B, W, 70, cuda)
+    to = lambda a: torch.as_tensor(a, device=cuda)  # noqa: E731
+    f32 = lambda *s: to(rng.random(s).astype(np.float32))  # noqa: E731
+    params_f = np.tile(np.array([0.05, 0.1, 0.1, 0.3, 0.4, 7.0, 8.0, 0.5], np.float32), (batch, 1))
+    params_i = np.tile(np.array([70, 2, 4, 1], np.int32), (batch, 1))
+    args = [
+        x[0], x[1], x[2], to(rng.random((batch, n)) < 0.85), to(rng.random((batch, n, D)) < 0.85),
+        x[3], to(np.tile(np.arange(W, dtype=np.int32), (batch, 1))), to(rng.random((batch, W)) < 0.8),
+        to(g.neighbors.astype(np.int32)), to(g.degrees.astype(np.int32)),
+        f32(batch, W), f32(batch, W), f32(batch, W), f32(batch, W), f32(batch, K, W),
+        to(rng.integers(0, 4, (batch, K)).astype(np.int32)), f32(batch, n), f32(batch, n),
+        to(rng.random((batch, n)) < 0.05), f32(batch, n, D), f32(batch, n, D),
+        to(params_f), to(params_i),
+    ]
+    before = whole_round.launches
+    _assert_same(whole_round(*[a.clone() for a in args], decafork_plus=plus),
+                 whole_round_plain(*[a.clone() for a in args], plus))
+    assert whole_round.launches == before + 1
+
+
+def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
+    x = _observation(np.random.default_rng(0), 1, 19, 16, 64, 16, 70, cuda)
+    with pytest.raises(TypeError):
+        theta_sums(x[0], x[1].to(torch.int32), x[2], x[8])  # hist must be int16
