@@ -1,22 +1,36 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA H100.
 
-    python3 chip_smoke.py            # the paper-scale run (9000 steps)
-    python3 chip_smoke.py --steps N  # a shorter main path (the cut is printed)
+    python3 chip_smoke.py               # the main path at 6500 of the paper's 9000 steps
+    python3 chip_smoke.py --steps 9000  # the paper's full length
+    python3 chip_smoke.py --steps N     # any other length (a cut is printed)
+
+The default cuts the DecAFork ensembles' depth so that the whole run,
+serving included, stays near half of a 20-minute budget: their round
+loop is host-bound (its time per round does not shrink with fewer
+seeds), and 6500 steps still fire both bursts (steps 2000 and 6000).
 
 Phases, each printed on its own line:
 
 1. device: nvidia-smi's name and power limit, torch's device name, and
-   the build of the three kernels from ``src/repro_torch/csrc`` (nvcc,
-   sm_90a, one process per source);
+   the build of the five kernels from ``src/repro_torch/csrc`` (nvcc,
+   sm_90a, one process per source, all at once);
 2. kernels: each kernel against its plain PyTorch version on the card,
-   bitwise, on numpy-seeded inputs at the main path's shapes (batch 50,
-   n 100, C = W = 64, B = 1024, D = 8), and round_update / theta_sums
-   also at n = 100,000, batch 1; median times by CUDA events, the plain
-   version's time and the bytes-moved bound at 3.35 TB/s;
+   on numpy-seeded inputs at its path's shapes. The round kernels
+   bitwise (batch 50, n 100, C = W = 64, B = 1024, D = 8; round_update /
+   theta_sums also at n = 100,000, batch 1); flash_attention at yi-6b's
+   prefill (batch 4, S 512, H 32, KV 4, D 128, bf16, tolerance 3e-2),
+   paper-rwsgd's (S 128, H 8, KV 4, D 32, f32, 2e-4) and a windowed
+   shape (window 96, S 256, bf16); ssd_intra_chunk at mamba2-1.3b's
+   (batch 4, 2 chunks of 256, H 64, P 64, N 128, bf16 B / C, 3e-4).
+   Median times by CUDA events, the plain version's time, the bound (the
+   larger of the bytes over 3.35 TB/s and the operations over the rate
+   for their type) and, for attention, one
+   ``scaled_dot_product_attention`` call on the same inputs;
 3. main path: the paper's DecAFork and DecAFork+ ensembles (regular
    graph n = 100, d = 8; Z0 = 10, W = 64, B = 1024, 50 seeds, bursts of
-   5 and 6 walks at steps 2000 and 6000, decisions from step 1000)
+   5 and 6 walks at steps 2000 and 6000, decisions from step 1000; 6500
+   steps unless ``--steps`` says otherwise)
    through ``repro_torch.api.Experiment`` on ``cuda``; the whole_round
    launch count must equal the rounds run, and Z_t must survive near Z0;
    then a 40-round torch.profiler window of the same configuration gives
@@ -25,7 +39,19 @@ Phases, each printed on its own line:
    on the CPU; integer outputs bitwise, theta_mean within 1e-6;
 5. unfused paths: ``round_impl="unfused"`` with ``estimator_impl`` =
    ``"fused"`` (round_update) and ``"pallas"`` (theta_sums); their
-   integer outputs must equal the fused round's.
+   integer outputs must equal the fused round's;
+6. serve: ``repro_torch.launch.serve.generate`` on cuda for yi-6b
+   (batch 4, prompt 512, 32 new tokens), mamba2-1.3b (the same) and
+   paper-rwsgd (batch 4, prompt 128, 16 new tokens), at their published
+   widths and depths with ``use_pallas=True`` and weights from
+   ``Model.init`` (seed 0), timed in the served dtype after a 2-token
+   warm-up. Each prefill must launch its kernel once per layer (the plain
+   path none). The gate runs the same weights in float32: the kernel
+   path's last-position logits must match ``use_pallas=False`` (plain
+   torch on the card) within ``F32_LOGIT_RTOL`` of the logit scale, and
+   its greedy tokens must equal the plain run's wherever the plain run's
+   top-2 logit gap exceeds that bound; the served dtype's gap is
+   recorded.
 
 Before the last line it prints the card's name and power limit, then one
 JSON object with every kernel's launches, error and times; the last line
@@ -45,10 +71,27 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 OPS_PER_S = 67e12  # H100 SXM float32 / int32 outside the tensor cores
+# H100 SXM dense tensor-core peaks by input type (data sheet): bf16, and
+# TF32 for float32 inputs
+TC_FLOPS = {"bfloat16": 989e12, "float32": 495e12}
+# kernel vs plain prefill logits in float32: max |diff| <= F32_LOGIT_RTOL *
+# max |plain logit|. The two paths differ only in summation order there
+# (4.6e-6 of the scale measured at yi-6b, 0 at mamba2-1.3b). In bf16 they
+# round at different places in every layer (the plain attention casts its
+# probabilities to bf16, the plain SSD takes C.B^T in bf16), and random
+# weights amplify that through 32-48 layers, so the served dtype's gap is
+# recorded and the gate is the float32 run of the same weights.
+F32_LOGIT_RTOL = 1e-4
+SERVE = (  # arch, batch, prompt, new tokens
+    ("yi_6b", 4, 512, 32),
+    ("mamba2_1_3b", 4, 512, 32),
+    ("paper_rwsgd", 4, 128, 16),
+)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 PAPER = dict(n=100, degree=8, z0=10, max_walks=64, rt_bins=1024, protocol_start=1000,
              bursts=(2000, 6000), burst_sizes=(5, 6), steps=9000, seeds=50)
+MAIN_STEPS = 6500  # the default main-path length (see the module docstring)
 ALGS = {"decafork": dict(eps=2.0), "decafork+": dict(eps=3.0, eps2=7.57)}
 CHURN = dict(burst_times=(60, 140), burst_sizes=(5, 6), p_fail=0.002,
              byzantine_node=2, p_byz=0.05, byz_start_time=30,
@@ -255,6 +298,247 @@ def check_kernels(rng, graph, dev, large_n=100_000):
     return rows
 
 
+def tc_bound(nbytes, flops, dtype_name):
+    """(bound ms, "bytes" or "operations"): bytes over HBM bandwidth
+    against FLOPs over the tensor-core peak for the inputs' type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / TC_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa_call(q, k, v, window):
+    """The one PyTorch call that computes the same attention, on (B, H,
+    S, D) views of the model-layout tensors; a sliding window goes in as
+    a boolean mask. A yardstick only: the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    if window > 0:
+        S = q.shape[1]
+        i = torch.arange(S, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+
+def check_model_kernels(rng, dev):
+    """flash_attention and ssd_intra_chunk against their plain versions
+    at the serve path's shapes; the first shape of each is its row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import (
+        flash_attention, flash_attention_plain, ssd_intra_chunk, ssd_intra_chunk_plain,
+    )
+
+    f32 = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32, device=dev)  # noqa: E731
+    rows = {}
+    for label, (B, S, H, KV, D, window, dt) in (
+        ("yi-6b prefill", (4, 512, 32, 4, 128, 0, "bfloat16")),
+        ("paper-rwsgd prefill", (4, 128, 8, 4, 32, 0, "float32")),
+        ("window 96", (4, 256, 32, 4, 128, 96, "bfloat16")),
+    ):
+        dtype = getattr(torch, dt)
+        q, k, v = f32(B, S, H, D).to(dtype), f32(B, S, KV, D).to(dtype), f32(B, S, KV, D).to(dtype)
+        got = flash_attention(q, k, v, window=window)
+        want = flash_attention_plain(q, k, v, window)
+        tol = 2e-4 if dt == "float32" else 3e-2
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        err = float((got.float() - want.float()).abs().max())
+        ms = cuda_ms(lambda: flash_attention(q, k, v, window=window), 20)
+        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, window), 3, 3)
+        lib_ms = cuda_ms(sdpa_call(q, k, v, window), 20)
+        i = np.arange(S)
+        valid = (i[None, :] <= i[:, None]) & ((i[None, :] > i[:, None] - window) if window else True)
+        flops = 4 * D * int(valid.sum()) * B * H  # Q.K^T and P.V over the valid pairs
+        nbytes = (2 * B * S * H * D + 2 * B * S * KV * D) * q.element_size()
+        bound, by = tc_bound(nbytes, flops, dt)
+        shape = f"B={B},S={S},H={H},KV={KV},D={D},window={window},{dt}"
+        log("kernels", kernel="flash_attention", case=repr(label), shape=shape, max_abs_err=err,
+            tol=tol, ms=f"{ms:.6f}", plain_ms=f"{plain_ms:.6f}", sdpa_ms=f"{lib_ms:.6f}",
+            bound_ms=f"{bound:.6f}", bound_by=by, bytes=nbytes, flops=flops)
+        ent = dict(name="flash_attention", route="cuda",
+                   source="src/repro_torch/csrc/flash_attention.cu",
+                   replaces="src/repro/kernels/flash_attention.py:75", max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                   shape=shape, bytes=nbytes, flops=flops, tol=tol, case=label)
+        if "flash_attention" in rows:
+            rows["flash_attention"].setdefault("other_shapes", []).append(ent)
+        else:
+            rows["flash_attention"] = ent
+
+    B, nc, Q, H, P, N = 4, 2, 256, 64, 64, 128  # mamba2-1.3b, prompt 512
+    x = f32(B, nc, Q, H, P)
+    da = torch.cumsum(-torch.nn.functional.softplus(f32(B, nc, Q, H)) * torch.exp(f32(H)), dim=2)
+    b, c = f32(B, nc, Q, N).to(torch.bfloat16), f32(B, nc, Q, N).to(torch.bfloat16)
+    got = ssd_intra_chunk(x, da, b, c)
+    want = ssd_intra_chunk_plain(x, da, b, c)
+    err = 0.0
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=3e-4, atol=3e-4)
+        err = max(err, float((g - w).abs().max()))
+    ms = cuda_ms(lambda: ssd_intra_chunk(x, da, b, c), 20)
+    plain_ms = cuda_ms(lambda: ssd_intra_chunk_plain(x, da, b, c), 3, 3)
+    tri = Q * (Q + 1) // 2
+    # C.B^T once per chunk; per head y = W.x over t <= q and the state B^T.(x scaled)
+    flops = B * nc * (2 * N * tri + H * (2 * P * tri + 2 * P * N * Q))
+    nbytes = B * nc * (Q * H * P * 4 * 2 + Q * H * 4 + 2 * Q * N * 2 + H * P * N * 4)
+    bound, by = tc_bound(nbytes, flops, "float32")
+    shape = f"B={B},nc={nc},Q={Q},H={H},P={P},N={N},x f32,B/C bf16"
+    log("kernels", kernel="ssd_intra_chunk", shape=shape, max_abs_err=err, tol=3e-4,
+        ms=f"{ms:.6f}", plain_ms=f"{plain_ms:.6f}", bound_ms=f"{bound:.6f}", bound_by=by,
+        bytes=nbytes, flops=flops)
+    rows["ssd_intra_chunk"] = dict(
+        name="ssd_intra_chunk", route="cuda", source="src/repro_torch/csrc/ssd_intra_chunk.cu",
+        replaces="src/repro/kernels/ssd_scan.py:53", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by, library_ms=None, shape=shape, bytes=nbytes, flops=flops,
+        tol=3e-4)
+    return [rows["flash_attention"], rows["ssd_intra_chunk"]]
+
+
+# ---------------------------------------------------------------------------
+# phase 6: serving the registry's models through the kernels
+# ---------------------------------------------------------------------------
+
+
+def greedy_plain(model, params, tokens, new):
+    """The plain path's greedy tokens and, per step, the top-2 logit gap
+    (B, new) of the logits each token was chosen from."""
+    import torch
+
+    from repro_torch.launch.serve import expand_cache
+
+    last, cache = model.prefill(params, {"tokens": tokens})
+    cache = expand_cache(model, cache, tokens.shape[1] + new + 1)
+    toks, gaps, logits = [], [], last.clone()
+    for i in range(new):
+        top = torch.topk(logits[:, 0].float(), 2, dim=-1).values
+        gaps.append(top[:, 0] - top[:, 1])
+        toks.append(torch.argmax(logits[:, 0], dim=-1).to(torch.int32))
+        if i < new - 1:
+            logits, cache = model.decode_step(params, cache, {"tokens": toks[-1][:, None]})
+    return last, torch.stack(toks, 1), torch.stack(gaps, 1)
+
+
+def prefill_launches(model, params, tokens, kern, layers, what):
+    """Last-position logits of one prefill, checking that it launched
+    ``kern`` once per layer (none for the plain path)."""
+    before = kern.launches
+    last, _ = model.prefill(params, {"tokens": tokens})
+    want = layers if model.cfg.use_pallas else 0
+    if kern.launches - before != want:
+        raise AssertionError(f"{what}: {kern.__name__} launched {kern.launches - before} "
+                             f"times in one prefill, expected {want}")
+    return last
+
+
+def serve_models(dev):
+    """Phase 6 for each model of ``SERVE``; returns (results, launches of
+    flash_attention and ssd_intra_chunk over the phase)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS, flash_attention, ssd_intra_chunk
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Model
+    from repro_torch.utils import prng
+
+    for k in KERNELS:  # this path's counts start here
+        k.launches = 0
+    res = {}
+    for arch, batch, prompt, new in SERVE:
+        cfg = get_config(arch, use_pallas=True)
+        L = cfg.num_layers
+        kern = ssd_intra_chunk if cfg.arch_type == "ssm" else flash_attention
+        model, plain = Model(cfg), Model(dataclasses.replace(cfg, use_pallas=False))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(prng.key(0), dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated()
+        n_params = sum(p.numel() for p in params.parameters())
+        toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (batch, prompt)),
+                               dtype=torch.int32, device=dev)
+        batch_in = {"tokens": toks}
+
+        # the served dtype, through the kernels: one short warm-up call
+        # (first-use costs of the library's matrix products stay out of
+        # the timing), then the timed generate
+        before = kern.launches
+        generate(model, params, batch_in, 2)
+        torch.cuda.reset_peak_memory_stats()
+        gen, stats = generate(model, params, batch_in, new)
+        torch.cuda.synchronize()
+        serve_peak = torch.cuda.max_memory_allocated()
+        if kern.launches - before != 2 * L:  # one prefill in each generate
+            raise AssertionError(f"{arch}: generate did not launch {kern.__name__} once per layer")
+        if not (gen.shape == (batch, new) and int(gen.min()) >= 0
+                and int(gen.max()) < cfg.vocab_size):
+            raise AssertionError(f"{arch}: generated tokens of shape {tuple(gen.shape)} out of range")
+        last = prefill_launches(model, params, toks, kern, L, arch)
+        plain_last = prefill_launches(plain, params, toks, kern, L, arch)
+        if not (torch.isfinite(last).all() and torch.isfinite(plain_last).all()):
+            raise AssertionError(f"{arch}: non-finite prefill logits")
+        served_gap = float((last.float() - plain_last.float()).abs().max())
+        served_scale = float(plain_last.float().abs().max())
+
+        # the gate, in float32 (the same weights, upcast in place): kernel
+        # path against plain path, prefill logits and greedy tokens
+        if cfg.dtype != "float32":
+            params.float()
+            model = Model(dataclasses.replace(cfg, dtype="float32"))
+            plain = Model(dataclasses.replace(cfg, dtype="float32", use_pallas=False))
+        gen32, _ = generate(model, params, batch_in, new)
+        last32 = prefill_launches(model, params, toks, kern, L, f"{arch} f32")
+        plain32, plain_gen32, gaps = greedy_plain(plain, params, toks, new)
+        scale = float(plain32.abs().max())
+        err = float((last32 - plain32).abs().max())
+        bound = F32_LOGIT_RTOL * scale
+        if err > bound:
+            raise AssertionError(f"{arch}: float32 prefill logits differ by {err} > {bound}")
+        # greedy tokens: equal up to each stream's first step whose plain
+        # top-2 gap is within the bound (a legitimate flip; the streams'
+        # contexts differ after it)
+        compared, ties = 0, 0
+        for b in range(batch):
+            for i in range(new):
+                if float(gaps[b, i]) <= bound:
+                    ties += 1
+                    break
+                compared += 1
+                if int(gen32[b, i]) != int(plain_gen32[b, i]):
+                    raise AssertionError(f"{arch}: stream {b} step {i}: kernel token "
+                                         f"{int(gen32[b, i])} != plain {int(plain_gen32[b, i])} "
+                                         f"with top-2 gap {float(gaps[b, i])} > {bound}")
+        prefill_ms = stats["prefill_s"] * 1e3
+        out = dict(arch=cfg.name, params=n_params, dtype=cfg.dtype, layers=L, batch=batch,
+                   prompt=prompt, new_tokens=new, init_s=init_s, init_peak_bytes=init_peak,
+                   serve_peak_bytes=serve_peak, prefill_ms=prefill_ms, decode_s=stats["decode_s"],
+                   decode_steps=stats["decode_steps"], decode_tokens_per_s=stats["tokens_per_s"],
+                   served_dtype_logit_gap=served_gap, served_dtype_logit_scale=served_scale,
+                   f32_logits_max_abs_err=err, f32_logits_bound=bound, f32_logit_scale=scale,
+                   f32_tokens_compared=compared, f32_streams_stopped_at_a_near_tie=ties,
+                   kernel=kern.__name__, kernel_launches_per_prefill=L)
+        res[arch] = out
+        log("serve", arch=cfg.name, params=n_params, dtype=cfg.dtype, init_s=f"{init_s:.3f}",
+            init_peak_GiB=f"{init_peak / 2**30:.3f}", serve_peak_GiB=f"{serve_peak / 2**30:.3f}",
+            prefill_ms=f"{prefill_ms:.3f}", decode_steps=stats["decode_steps"],
+            decode_tokens_per_s=f"{stats['tokens_per_s']:.1f}",
+            served_logit_gap=f"{served_gap}/{served_scale}", f32_logits_max_abs_err=err,
+            f32_bound=f"{bound:.3g}", f32_tokens_compared=compared, near_ties=ties,
+            launches_per_prefill=f"{kern.__name__}:{L}")
+        del params, model, plain
+        torch.cuda.empty_cache()
+    return res, {"flash_attention": flash_attention.launches,
+                 "ssd_intra_chunk": ssd_intra_chunk.launches}
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: the port's entry points
 # ---------------------------------------------------------------------------
@@ -432,8 +716,8 @@ def unfused_paths(graph, counts):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--steps", type=int, default=PAPER["steps"],
-                    help="main-path rounds (the paper runs 9000)")
+    ap.add_argument("--steps", type=int, default=MAIN_STEPS,
+                    help=f"main-path rounds (default {MAIN_STEPS}; the paper runs 9000)")
     args = ap.parse_args()
 
     try:
@@ -463,11 +747,13 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     graph = make_graph("regular", PAPER["n"], seed=0, degree=PAPER["degree"])
-    rows = check_kernels(rng, graph, "cuda")
+    rows = check_kernels(rng, graph, "cuda") + check_model_kernels(rng, "cuda")
     by_name = {r["name"]: r for r in rows}
 
     if args.steps < PAPER["steps"]:
-        log("main", cut=f"steps {args.steps} of the paper's {PAPER['steps']}; n, W, B and seeds uncut")
+        fired = [b for b in PAPER["bursts"] if b < args.steps]
+        log("main", cut=f"steps {args.steps} of the paper's {PAPER['steps']}; bursts at "
+                        f"{fired} fire; n, W, B and seeds uncut")
     for k in KERNELS:  # the main path's counts start here
         k.launches = 0
     main_res = main_path(graph, args.steps, PAPER["seeds"], by_name["whole_round"]["ms"])
@@ -476,6 +762,8 @@ def main() -> int:
     profile = profile_rounds(graph, PAPER["seeds"])
     parity = cross_device(graph)
     unfused = unfused_paths(graph, counts)
+    serve, serve_counts = serve_models("cuda")
+    counts.update(serve_counts)
 
     for r in rows:
         r["launches"] = counts.get(r["name"], 0)
@@ -485,7 +773,7 @@ def main() -> int:
 
     detail = dict(nvidia_smi=smi, device=name, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s, kernels=rows,
-                  main=main_res, profile=profile, parity=parity, unfused=unfused)
+                  main=main_res, profile=profile, parity=parity, unfused=unfused, serve=serve)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(detail, fh, indent=1)

@@ -1,11 +1,12 @@
-"""Carry state and configs across from the JAX package.
+"""Carry state, configs and weights across from the JAX package.
 
-This slice has no weights: what crosses is the simulator state and the
-configs, so a trajectory started in the reference can continue in the
-port. The JAX side exports its ``SimState`` as a flat dict of numpy
-arrays (dotted field paths, the typed key as its ``key_data`` uint32
-pair); these functions read such dicts and plain field dicts, and import
-nothing of JAX.
+What crosses is the simulator state and its configs, so a trajectory
+started in the reference can continue in the port, and a model's
+parameters, so the port serves the reference's weights. The JAX side
+exports a ``SimState`` or a param pytree as a flat dict of numpy arrays
+(dotted paths; the typed key as its ``key_data`` uint32 pair; bfloat16
+leaves as ``ml_dtypes.bfloat16`` arrays); these functions read such
+dicts and plain field dicts, and import nothing of JAX.
 """
 from __future__ import annotations
 
@@ -20,6 +21,9 @@ from repro_torch.core.failures import FailureConfig
 from repro_torch.core.protocol import ProtocolConfig
 from repro_torch.core.simulator import SimState
 from repro_torch.graphs.state import GraphState
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import ModelParams
+from repro_torch.models.transformer import param_shapes
 
 # field path -> (dtype, rank of one trajectory's array)
 STATE_FIELDS = {
@@ -92,3 +96,53 @@ def protocol_config(fields: Mapping) -> ProtocolConfig:
 def failure_config(fields: Mapping) -> FailureConfig:
     """``FailureConfig`` from a plain field dict (numpy leaves allowed)."""
     return FailureConfig(**{k: _plain(v) for k, v in fields.items()})
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    """A numpy leaf as a tensor; bfloat16 (``ml_dtypes``) crosses as its
+    raw 16-bit words."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(a.view(np.int16), copy=True))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def model_params_from_arrays(arrays: Mapping[str, np.ndarray], cfg: ModelConfig, device) -> ModelParams:
+    """The port's ``ModelParams`` from a reference param pytree flattened
+    to numpy: dotted paths (``"embed"``, ``"layers.attn.wq"``, ...), the
+    layer leaves stacked on a leading (L, ...) axis as ``Model.init``
+    builds them. The paths, shapes and dtypes must be exactly those the
+    port's ``Model(cfg).init`` draws (``param_shapes``; checked)."""
+    want = param_shapes(cfg)
+    L = cfg.num_layers
+    top, layers = {}, [{} for _ in range(L)]
+    seen = set()
+    for path, a in arrays.items():
+        parts = path.split(".")
+        if parts[0] == "layers":
+            a = np.asarray(a)
+            if a.shape[:1] != (L,):
+                raise ValueError(f"{path}: expected a leading layer axis of {L}, got {a.shape}")
+            for i in range(L):
+                name = ".".join(["layers", str(i)] + parts[1:])
+                _put(layers[i], parts[1:], _tensor(a[i], device))
+                seen.add(name)
+        else:
+            _put(top, parts, _tensor(a, device))
+            seen.add(path)
+    if seen != set(want):
+        raise KeyError(f"param paths differ from the port's: missing {sorted(set(want) - seen)}, "
+                       f"unexpected {sorted(seen - set(want))}")
+    params = ModelParams(top, layers)
+    for name, t in params.state_dict().items():
+        shape, dtype = want[name]
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: expected {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+    return params
+
+
+def _put(tree: dict, parts, value) -> None:
+    for p in parts[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[parts[-1]] = value

@@ -10,7 +10,9 @@ at once, and waits for them together.
 
 Flags keep float arithmetic IEEE-exact: no ``--use_fast_math``,
 ``-prec-div=true`` and ``-fmad=false``, since theta is held bitwise to
-the reference's node-sum formula.
+the reference's node-sum formula. The attention and SSD kernels, which
+are held to a tolerance, ask for their fused multiply-adds explicitly
+(``__fmaf_rn``), so the same flags serve every source.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-prec-div=true", "-prec-sqrt=true",
     "-fmad=false", "-ftz=false", "-Xptxas", "-v",
 )
-SOURCES = ("theta_sums", "round_update", "whole_round")
+SOURCES = ("theta_sums", "round_update", "whole_round", "flash_attention", "ssd_intra_chunk")
 
 _lock = threading.Lock()
 _libs: dict = {}

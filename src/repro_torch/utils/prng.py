@@ -95,7 +95,10 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     keys' batch axes (one datum per key)."""
     keys = keys.contiguous()
     k1, k2 = keys[..., 0], keys[..., 1]
-    d = torch.as_tensor(data, dtype=torch.int64, device=keys.device) & MASK
+    if isinstance(data, int):  # filled on the device: no host-to-device copy, no sync
+        d = torch.full((), data & MASK, dtype=torch.int64, device=keys.device)
+    else:
+        d = torch.as_tensor(data, dtype=torch.int64, device=keys.device) & MASK
     o0, o1 = threefry2x32(k1, k2, torch.zeros_like(d), d)
     o0, o1 = torch.broadcast_tensors(o0, o1)
     return torch.stack([o0, o1], dim=-1)
@@ -150,3 +153,91 @@ def randint(
     mult = ((mult * mult) & MASK) % span
     off = ((((hi % span) * mult) & MASK) + (lo % span)) & MASK
     return (minval + off % span).to(torch.int32)
+
+
+
+def _uniform_range(keys, shape, minval: float, maxval: float, *, partitionable: bool):
+    """``_uniform`` with float32 bounds: ``f * (maxval - minval) + minval``
+    over the [0, 1) floats, clipped below at ``minval`` (JAX's order of
+    float32 operations)."""
+    return _scale(uniform(keys, shape, partitionable=partitionable), minval, maxval)
+
+
+def _scale(f: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=f.device)
+    return torch.maximum(lo, f * (hi - lo) + lo)
+
+
+# XLA's float32 erf_inv (``ErfInv32`` in xla/client/lib/math.cc): Giles'
+# degree-9 polynomials in w = -log1p(-x^2), one for w < 5 and one above.
+# torch.erfinv is a different (more accurate) approximation that differs
+# from it by up to some 60 ulp; this one stays within 2 ulp of XLA's.
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function, XLA's formula (see above)."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
+    for c_lt, c_ge in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = torch.where(lt, c_lt, c_ge) + p * w
+    return torch.where(x.abs() == 1, x * torch.finfo(torch.float32).max, p * x)
+
+
+# jax's ``_normal_real`` draws on [nextafter(-1, 0), 1) so that erf_inv
+# stays finite
+_NORMAL_LO = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+_SQRT2 = float(torch.tensor(2.0, dtype=torch.float32).sqrt())
+# the partitionable layout hashes each element's own counter, so a large
+# draw from one key is made in pieces of this many elements (bounding the
+# int64 temporaries of the hash)
+_CHUNK = 1 << 24
+
+
+def normal(keys: torch.Tensor, shape, *, partitionable: bool = True) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` (float32): ``sqrt(2) *
+    erf_inv(u)`` with ``u`` uniform on ``[nextafter(-1, 0), 1)``, as
+    ``jax._src.random._normal_real``. The bits are JAX's; values agree
+    with it within a few float32 ulp (3 measured: ``log1p`` and the
+    products round differently in the last bit)."""
+    shape = tuple(shape)
+    size = 1
+    for s in shape:
+        size *= s
+    if keys.dim() != 1 or not partitionable or size <= _CHUNK:
+        u = _uniform_range(keys, shape, _NORMAL_LO, 1.0, partitionable=partitionable)
+        return erf_inv(u) * _SQRT2
+    out = torch.empty(size, dtype=torch.float32, device=keys.device)
+    k1, k2 = keys[0], keys[1]
+    for start in range(0, size, _CHUNK):
+        ctr = torch.arange(start, min(start + _CHUNK, size), dtype=torch.int64, device=keys.device)
+        b1, b2 = threefry2x32(k1, k2, torch.zeros_like(ctr), ctr)
+        u = _scale(bits_to_uniform(b1 ^ b2), _NORMAL_LO, 1.0)
+        out[start:start + ctr.numel()] = erf_inv(u) * _SQRT2
+        del ctr, b1, b2, u
+    return out.reshape(shape)
+
+
+_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def gumbel(keys: torch.Tensor, shape, *, partitionable: bool = True) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` (float32, mode "low"):
+    ``-log(-log(u))`` with ``u`` uniform on ``[tiny, 1)``."""
+    u = _uniform_range(keys, shape, _TINY, 1.0, partitionable=partitionable)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor, *, partitionable: bool = True):
+    """``jax.random.categorical(key, logits, axis=-1)``: the argmax over
+    the last axis of ``logits`` plus Gumbel noise drawn in ``logits``' own
+    shape (JAX draws it so when ``shape`` is None; the leading axes are
+    the batch). Returns int64 indices of shape ``logits.shape[:-1]``."""
+    g = gumbel(keys, tuple(logits.shape), partitionable=partitionable)
+    return torch.argmax(g + logits, dim=-1)

@@ -1,7 +1,10 @@
 """Each CUDA kernel of the port against its plain PyTorch version on the
-card, bitwise, at small and paper shapes. Needs an NVIDIA GPU: every test
-here is marked ``cuda`` and skips elsewhere. It imports no JAX, so it runs
-on a machine with torch and nvcc only:
+card: the round kernels bitwise at small and paper shapes, the attention
+and SSD kernels within the reference kernel tests' tolerances (2e-4 f32
+attention, 3e-2 bf16 attention, 3e-4 SSD), and the smoke models served
+with and without the kernels. Needs an NVIDIA GPU: every test here is
+marked ``cuda`` and skips elsewhere. It imports no JAX, so it runs on a
+machine with torch and nvcc only:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -13,8 +16,12 @@ import numpy as np  # noqa: E402
 
 from repro_torch.graphs import make_graph  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
+    flash_attention,
+    flash_attention_plain,
     round_update,
     round_update_plain,
+    ssd_intra_chunk,
+    ssd_intra_chunk_plain,
     theta_sums,
     theta_sums_plain,
     whole_round,
@@ -95,3 +102,77 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     x = _observation(np.random.default_rng(0), 1, 19, 16, 64, 16, 70, cuda)
     with pytest.raises(TypeError):
         theta_sums(x[0], x[1].to(torch.int32), x[2], x[8])  # hist must be int16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,D,window", [
+    (2, 128, 4, 4, 32, 0), (2, 256, 8, 2, 64, 96), (1, 7, 4, 2, 32, 0),
+    (1, 512, 32, 4, 128, 0), (1, 256, 4, 1, 256, 96),
+])
+def test_cuda_flash_attention_matches_plain(cuda, dtype, B, S, H, KV, D, window):
+    rng = np.random.default_rng(S + D + window)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s), dtype=torch.float32).to(cuda, dtype)
+               for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, window=window)
+    assert flash_attention.launches == before + 1 and got.dtype == dtype
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), flash_attention_plain(q, k, v, window).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,nc,Q,H,P,N", [(2, 2, 64, 2, 16, 8), (1, 3, 20, 2, 16, 8),
+                                          (2, 2, 256, 8, 64, 128)])
+def test_cuda_ssd_intra_chunk_matches_plain(cuda, dtype, B, nc, Q, H, P, N):
+    rng = np.random.default_rng(Q + H)
+    f = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32, device=cuda)  # noqa: E731
+    x = f(B, nc, Q, H, P)
+    steps = torch.nn.functional.softplus(f(B, nc, Q, H)) * -torch.exp(f(H))
+    da = torch.cumsum(steps, dim=2).contiguous()
+    b, c = f(B, nc, Q, N).to(dtype), f(B, nc, Q, N).to(dtype)
+    before = ssd_intra_chunk.launches
+    got = ssd_intra_chunk(x, da, b, c)
+    assert ssd_intra_chunk.launches == before + 1
+    for g, w in zip(got, ssd_intra_chunk_plain(x, da, b, c)):
+        torch.testing.assert_close(g, w, rtol=3e-4, atol=3e-4)
+
+
+def test_cuda_model_kernels_raise_instead_of_falling_back(cuda):
+    q = torch.zeros((1, 128, 4, 48), device=cuda)  # a head dim the kernel is not built for
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, q, q)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), q.half(), q.half())
+    x = torch.zeros((1, 1, 32, 2, 256), device=cuda)  # P beyond the kernel's 128
+    da = torch.zeros((1, 1, 32, 2), device=cuda)
+    b = torch.zeros((1, 1, 32, 8), device=cuda)
+    with pytest.raises(ValueError, match="P <="):
+        ssd_intra_chunk(x, da, b, b)
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "mamba2_1_3b"])
+def test_cuda_serve_smoke_config_through_the_kernels(cuda, arch):
+    """The smoke model served on the card with ``use_pallas``: every layer's
+    prefill launches the kernel once, and the logits agree with the same
+    weights run through plain torch on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Model
+    from repro_torch.utils import prng
+
+    cfg = get_smoke_config(arch, use_pallas=True, ssd_chunk=32)
+    model, plain = Model(cfg), Model(dataclasses.replace(cfg, use_pallas=False))
+    params = model.init(prng.key(0), cuda)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 64)),
+                           dtype=torch.int32, device=cuda)
+    kern = flash_attention if arch == "yi_6b" else ssd_intra_chunk
+    before = kern.launches
+    last, _ = model.prefill(params, {"tokens": toks})
+    assert kern.launches == before + cfg.num_layers
+    want, _ = plain.prefill(params, {"tokens": toks})
+    torch.testing.assert_close(last, want, rtol=2e-4, atol=2e-4)
+    gen, stats = generate(model, params, {"tokens": toks}, 4)
+    assert gen.shape == (2, 4) and stats["decode_steps"] == 3

@@ -1,6 +1,7 @@
-"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py``
-import neither JAX nor the JAX package, and the port imports with JAX
-made unimportable."""
+"""Import hygiene of the port: ``repro_torch`` (every module, the model
+and serving slice included) and ``chip_smoke.py`` import neither JAX nor
+the JAX package, and the port, its configs and its serving entry point
+import with JAX made unimportable."""
 import ast
 import os
 import subprocess
@@ -43,7 +44,10 @@ def test_port_imports_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
         "import repro_torch, repro_torch.api, repro_torch.convert, repro_torch.kernels\n"
-        "import repro_torch.core.simulator\n"
+        "import repro_torch.core.simulator, repro_torch.kernels.ops, repro_torch.data\n"
+        "import repro_torch.models, repro_torch.launch.serve, repro_torch.configs\n"
+        "from repro_torch.configs import ARCH_IDS, get_config\n"
+        "[get_config(a) for a in ARCH_IDS + ('paper_rwsgd',)]\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
     )
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
