@@ -13,20 +13,26 @@ seeds), and 6500 steps still fire both bursts (steps 2000 and 6000).
 Phases, each printed on its own line:
 
 1. device: nvidia-smi's name and power limit, torch's device name, and
-   the build of the five kernels from ``src/repro_torch/csrc`` (nvcc,
-   sm_90a, one process per source, all at once);
+   the build of the kernels' six sources from ``src/repro_torch/csrc``
+   (nvcc, sm_90a, one process per source, all at once), with each
+   source's seconds; the bf16 attention library's SASS must hold HGMMA
+   (wgmma) instructions, and its registers and spills are printed;
 2. kernels: each kernel against its plain PyTorch version on the card,
    on numpy-seeded inputs at its path's shapes. The round kernels
    bitwise (batch 50, n 100, C = W = 64, B = 1024, D = 8; round_update /
    theta_sums also at n = 100,000, batch 1); flash_attention at yi-6b's
-   prefill (batch 4, S 512, H 32, KV 4, D 128, bf16, tolerance 3e-2),
-   paper-rwsgd's (S 128, H 8, KV 4, D 32, f32, 2e-4) and a windowed
-   shape (window 96, S 256, bf16); ssd_intra_chunk at mamba2-1.3b's
-   (batch 4, 2 chunks of 256, H 64, P 64, N 128, bf16 B / C, 3e-4).
-   Median times by CUDA events, the plain version's time, the bound (the
-   larger of the bytes over 3.35 TB/s and the operations over the rate
-   for their type) and, for attention, one
-   ``scaled_dot_product_attention`` call on the same inputs;
+   prefill (batch 4, S 512, H 32, KV 4, D 128, bf16, tolerance 3e-2; the
+   same batch and S at D 64 and D 256), paper-rwsgd's (S 128, H 8, KV 4,
+   D 32, f32, 2e-4) and a windowed shape (window 96, S 256, bf16);
+   ssd_intra_chunk at mamba2-1.3b's (batch 4, 2 chunks of 256, H 64,
+   P 64, N 128, bf16 B / C, 3e-4).
+   Median times by CUDA events: each kernel's from Python (``ms``: eager,
+   the wrapper's host cost included, as since the first slice) and on the
+   device alone (``device_ms``: the same calls replayed as a CUDA graph),
+   the plain version's time (eager), the bound (the larger of the bytes
+   over 3.35 TB/s and the operations over the rate for their type) and,
+   for attention, one ``scaled_dot_product_attention`` call on the same
+   inputs (``library_ms`` eager, ``library_device_ms`` graph);
 3. main path: the paper's DecAFork and DecAFork+ ensembles (regular
    graph n = 100, d = 8; Z0 = 10, W = 64, B = 1024, 50 seeds, bursts of
    5 and 6 walks at steps 2000 and 6000, decisions from step 1000; 6500
@@ -114,20 +120,29 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, groups: int = 7) -> float:
+def cuda_ms(fn, reps: int, groups: int = 7, graph: bool = False) -> float:
     """Median over ``groups`` of the mean time of ``reps`` calls, by CUDA
-    events, after one warm-up call."""
+    events, after one warm-up call. With ``graph`` the ``reps`` calls are
+    captured once as a CUDA graph and each group replays it, so the time
+    is the device's alone: a kernel whose wrapper costs the host more
+    than the kernel costs the device is otherwise timed by the host."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    run = lambda: [fn() for _ in range(reps)]  # noqa: E731
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+        run = g.replay
+        run()
     times = []
     for _ in range(groups):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(reps):
-            fn()
+        run()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / reps)
@@ -227,18 +242,23 @@ def check_kernels(rng, graph, dev, large_n=100_000):
     rows = []
     batch, n, C, B, D, W, K = 50, 100, 64, 1024, 8, 64, 2
 
-    def entry(name, source, replaces, err, ms, plain_ms, nbytes, nops, shape):
-        """The bound is the larger of bytes over HBM bandwidth and simple
-        (integer / float32) operations over the non-tensor-core rate."""
+    def entry(name, source, replaces, err, fn, plain_ms, nbytes, nops, shape, reps):
+        """Times ``fn`` (the kernel's wrapper) eagerly from Python and on
+        the device alone (graph replay). The bound is the larger of bytes
+        over HBM bandwidth and simple (integer / float32) operations over
+        the non-tensor-core rate."""
+        ms = cuda_ms(fn, reps)
+        device_ms = cuda_ms(fn, reps, graph=True)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / OPS_PER_S * 1e3
         bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
         log("kernels", kernel=name, shape=shape, max_abs_err=err, ms=f"{ms:.6f}",
-            plain_ms=f"{plain_ms:.6f}", bound_ms=f"{bound:.6f}", bound_by=by,
-            bytes=nbytes, ops=nops)
+            device_ms=f"{device_ms:.6f}", plain_ms=f"{plain_ms:.6f}", bound_ms=f"{bound:.6f}",
+            bound_by=by, bytes=nbytes, ops=nops)
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                    bound_by=by, library_ms=None, shape=shape, bytes=nbytes, ops=nops)
+                    max_abs_err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                    bound_ms=bound, bound_by=by, library_ms=None, library_device_ms=None,
+                    shape=shape, bytes=nbytes, ops=nops)
 
     for shape in ((batch, n), (1, large_n)):
         bt, nn = shape
@@ -250,11 +270,12 @@ def check_kernels(rng, graph, dev, large_n=100_000):
         if nn == n:  # the CPU's plain version agrees with the card's
             max_abs_err((theta_sums_plain(*cpu((ls, hist, total, t))),), (want,))
         reps = 50 if nn == n else 5
-        ms = cuda_ms(lambda: theta_sums(ls, hist, total, t), reps)
         plain_ms = cuda_ms(lambda: theta_sums_plain(ls, hist, total, t), 1, 3)
         ent = entry("theta_sums", "src/repro_torch/csrc/theta_sums.cu",
-                    "src/repro/kernels/theta_survival.py:52", err, ms, plain_ms,
-                    obs_bytes(bt, nn, C, B, 0, nn), bt * nn * (B + 2 * C), f"batch={bt},n={nn}")
+                    "src/repro/kernels/theta_survival.py:52", err,
+                    lambda: theta_sums(ls, hist, total, t), plain_ms,
+                    obs_bytes(bt, nn, C, B, 0, nn), bt * nn * (B + 2 * C), f"batch={bt},n={nn}",
+                    reps)
         if nn == n:
             rows.append(ent)
         else:
@@ -264,12 +285,11 @@ def check_kernels(rng, graph, dev, large_n=100_000):
         want = round_update_plain(*clone(x))
         err = max_abs_err(got, want)
         work = clone(x)
-        ms = cuda_ms(lambda: round_update(*work), reps)
         plain_ms = cuda_ms(lambda: round_update_plain(*work), 1, 3)
         ent = entry("round_update", "src/repro_torch/csrc/round_update.cu",
-                    "src/repro/kernels/round_update.py:163", err, ms, plain_ms,
-                    obs_bytes(bt, nn, C, B, W, nn), bt * (nn * (B + 2 * C) + 4 * W),
-                    f"batch={bt},n={nn}")
+                    "src/repro/kernels/round_update.py:163", err, lambda: round_update(*work),
+                    plain_ms, obs_bytes(bt, nn, C, B, W, nn), bt * (nn * (B + 2 * C) + 4 * W),
+                    f"batch={bt},n={nn}", reps)
         if nn == n:
             rows.append(ent)
         else:
@@ -283,7 +303,6 @@ def check_kernels(rng, graph, dev, large_n=100_000):
         err = max_abs_err(got, want)
         max_abs_err(whole_round_plain(*cpu(clone(x)), plus), want)
     work = clone(x)
-    ms = cuda_ms(lambda: whole_round(*work, decafork_plus=True), 50)
     plain_ms = cuda_ms(lambda: whole_round_plain(*work, True), 1, 3)
     # bytes: topology tables and uniforms, the walk vectors, and the rows
     # the walks visit (last_seen, hist, total read; outputs written)
@@ -292,10 +311,33 @@ def check_kernels(rng, graph, dev, large_n=100_000):
               + batch * W * (4 * 8 + 4 * K + D * 8)
               + visited * (C * 4 + B * 2 + 4))
     rows.append(entry("whole_round", "src/repro_torch/csrc/whole_round.cu",
-                      "src/repro/kernels/round_update.py:442", err, ms, plain_ms,
+                      "src/repro/kernels/round_update.py:442", err,
+                      lambda: whole_round(*work, decafork_plus=True), plain_ms,
                       nbytes, batch * (3 * n * D + W * (4 * D + (1 + K) * W + B + 2 * C)),
-                      f"batch={batch},n={n}"))
+                      f"batch={batch},n={n}", 50))
     return rows
+
+
+def attention_build():
+    """The bf16 attention library holds wgmma (HGMMA in its SASS, read by
+    cuobjdump beside nvcc) and TMA loads (UTMALDG); returns the counts
+    and the compiler's register / spill lines."""
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    lib = _build._lib_path("flash_attention_sm90")
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text().splitlines()
+             if "registers" in ln or "spill" in ln]
+    out = dict(hgmma=sass.count("HGMMA"), utmaldg=sass.count("UTMALDG"), ptxas=ptxas)
+    log("device", attention_sass_HGMMA=out["hgmma"], UTMALDG=out["utmaldg"],
+        ptxas=repr("; ".join(ptxas)))
+    if out["hgmma"] == 0:
+        raise AssertionError("flash_attention_sm90: no HGMMA in the SASS (wgmma not issued)")
+    return out
 
 
 def tc_bound(nbytes, flops, dtype_name):
@@ -338,6 +380,8 @@ def check_model_kernels(rng, dev):
         ("yi-6b prefill", (4, 512, 32, 4, 128, 0, "bfloat16")),
         ("paper-rwsgd prefill", (4, 128, 8, 4, 32, 0, "float32")),
         ("window 96", (4, 256, 32, 4, 128, 96, "bfloat16")),
+        ("D 64", (4, 512, 32, 4, 64, 0, "bfloat16")),
+        ("D 256", (4, 512, 32, 4, 256, 0, "bfloat16")),
     ):
         dtype = getattr(torch, dt)
         q, k, v = f32(B, S, H, D).to(dtype), f32(B, S, KV, D).to(dtype), f32(B, S, KV, D).to(dtype)
@@ -347,8 +391,10 @@ def check_model_kernels(rng, dev):
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
         err = float((got.float() - want.float()).abs().max())
         ms = cuda_ms(lambda: flash_attention(q, k, v, window=window), 20)
+        device_ms = cuda_ms(lambda: flash_attention(q, k, v, window=window), 20, graph=True)
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, window), 3, 3)
         lib_ms = cuda_ms(sdpa_call(q, k, v, window), 20)
+        lib_device_ms = cuda_ms(sdpa_call(q, k, v, window), 20, graph=True)
         i = np.arange(S)
         valid = (i[None, :] <= i[:, None]) & ((i[None, :] > i[:, None] - window) if window else True)
         flops = 4 * D * int(valid.sum()) * B * H  # Q.K^T and P.V over the valid pairs
@@ -356,13 +402,15 @@ def check_model_kernels(rng, dev):
         bound, by = tc_bound(nbytes, flops, dt)
         shape = f"B={B},S={S},H={H},KV={KV},D={D},window={window},{dt}"
         log("kernels", kernel="flash_attention", case=repr(label), shape=shape, max_abs_err=err,
-            tol=tol, ms=f"{ms:.6f}", plain_ms=f"{plain_ms:.6f}", sdpa_ms=f"{lib_ms:.6f}",
+            tol=tol, ms=f"{ms:.6f}", device_ms=f"{device_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
+            sdpa_ms=f"{lib_ms:.6f}", sdpa_device_ms=f"{lib_device_ms:.6f}",
             bound_ms=f"{bound:.6f}", bound_by=by, bytes=nbytes, flops=flops)
-        ent = dict(name="flash_attention", route="cuda",
-                   source="src/repro_torch/csrc/flash_attention.cu",
+        src = "flash_attention_sm90.cu" if dt == "bfloat16" else "flash_attention.cu"
+        ent = dict(name="flash_attention", route="cuda", source=f"src/repro_torch/csrc/{src}",
                    replaces="src/repro/kernels/flash_attention.py:75", max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms,
-                   shape=shape, bytes=nbytes, flops=flops, tol=tol, case=label)
+                   device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                   library_ms=lib_ms, library_device_ms=lib_device_ms, shape=shape,
+                   bytes=nbytes, flops=flops, tol=tol, case=label)
         if "flash_attention" in rows:
             rows["flash_attention"].setdefault("other_shapes", []).append(ent)
         else:
@@ -379,6 +427,7 @@ def check_model_kernels(rng, dev):
         torch.testing.assert_close(g, w, rtol=3e-4, atol=3e-4)
         err = max(err, float((g - w).abs().max()))
     ms = cuda_ms(lambda: ssd_intra_chunk(x, da, b, c), 20)
+    device_ms = cuda_ms(lambda: ssd_intra_chunk(x, da, b, c), 20, graph=True)
     plain_ms = cuda_ms(lambda: ssd_intra_chunk_plain(x, da, b, c), 3, 3)
     tri = Q * (Q + 1) // 2
     # C.B^T once per chunk; per head y = W.x over t <= q and the state B^T.(x scaled)
@@ -387,13 +436,13 @@ def check_model_kernels(rng, dev):
     bound, by = tc_bound(nbytes, flops, "float32")
     shape = f"B={B},nc={nc},Q={Q},H={H},P={P},N={N},x f32,B/C bf16"
     log("kernels", kernel="ssd_intra_chunk", shape=shape, max_abs_err=err, tol=3e-4,
-        ms=f"{ms:.6f}", plain_ms=f"{plain_ms:.6f}", bound_ms=f"{bound:.6f}", bound_by=by,
-        bytes=nbytes, flops=flops)
+        ms=f"{ms:.6f}", device_ms=f"{device_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
+        bound_ms=f"{bound:.6f}", bound_by=by, bytes=nbytes, flops=flops)
     rows["ssd_intra_chunk"] = dict(
         name="ssd_intra_chunk", route="cuda", source="src/repro_torch/csrc/ssd_intra_chunk.cu",
-        replaces="src/repro/kernels/ssd_scan.py:53", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound, bound_by=by, library_ms=None, shape=shape, bytes=nbytes, flops=flops,
-        tol=3e-4)
+        replaces="src/repro/kernels/ssd_scan.py:53", max_abs_err=err, ms=ms, device_ms=device_ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None, library_device_ms=None,
+        shape=shape, bytes=nbytes, flops=flops, tol=3e-4)
     return [rows["flash_attention"], rows["ssd_intra_chunk"]]
 
 
@@ -739,9 +788,12 @@ def main() -> int:
 
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
-    build_s = _build.build_all()
+    build = _build.build_all()  # source -> seconds; the sources compile at once
+    build_s = max(build.values(), default=0.0)
     log("device", nvidia_smi=repr(smi), torch_device=repr(name),
-        torch=torch.__version__, cuda=torch.version.cuda, build_s=f"{build_s:.2f}")
+        torch=torch.__version__, cuda=torch.version.cuda, build_s=f"{build_s:.2f}",
+        **{f"build_s_{k}": f"{v:.2f}" for k, v in build.items()})
+    sass = attention_build()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -772,14 +824,15 @@ def main() -> int:
     log("launches", **{k.__name__: counts[k.__name__] for k in KERNELS})
 
     detail = dict(nvidia_smi=smi, device=name, torch=torch.__version__,
-                  cuda=torch.version.cuda, build_s=build_s, kernels=rows,
+                  cuda=torch.version.cuda, build_s=build_s,
+                  build_s_by_source=build, attention_sass=sass, kernels=rows,
                   main=main_res, profile=profile, parity=parity, unfused=unfused, serve=serve)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(detail, fh, indent=1)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms")
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,17 +1,20 @@
-// flash_attention: causal (optionally sliding-window) GQA attention with
-// the online-softmax recurrence, in the model layout q (B, S, H, D),
-// k / v (B, S, KV, D), out (B, S, H, D); float32 or bfloat16 (raw 16-bit
-// words, converted with cuda_bf16.h), f32 accumulation.
+// flash_attention, float32: causal (optionally sliding-window) GQA
+// attention with the online-softmax recurrence, in the model layout
+// q (B, S, H, D), k / v (B, S, KV, D), out (B, S, H, D), in exact float32
+// on the CUDA cores (no TF32: the served models' float32 gate holds the
+// kernel path to 1e-4 of the logit scale). bfloat16 inputs go to the
+// tensor-core kernel of flash_attention_sm90.cu; the wrapper picks the
+// library by dtype.
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention
-// (_flash_kernel). The TPU kernel holds a whole (S, D) K/V stripe in VMEM
-// and runs 128 x 128 blocks on the MXU; here a CTA holds one 32-row query
-// tile and streams 32-key K/V tiles through shared memory.
+// (_flash_kernel) for float32 inputs. The TPU kernel holds a whole (S, D)
+// K/V stripe in VMEM and runs 128 x 128 blocks on the MXU; here a CTA
+// holds one 32-row query tile and streams 32-key K/V tiles through shared
+// memory.
 //
-// Bound: at yi-6b's prefill (S 512, D 128, bf16) the work is ~2 GFLOP per
-// layer against ~13 MB of q/k/v/o, so operations bound it on the tensor
-// cores. This first kernel runs on the CUDA cores (f32 FMAs), so it is
-// far from that bound; tensor cores (wgmma) and TMA come later.
+// Bound: at paper-rwsgd's prefill (B 4, S 128, H 8, KV 4, D 32) the work
+// is 34 MFLOP against 1.6 MB, so bytes bound it; the kernel runs f32 FMAs
+// on the CUDA cores, well above that bound.
 //
 // Design: grid (query tiles, q heads, batch); 4 warps, 8 query rows per
 // warp. Scores: lane = key of the tile, each lane dots its key row with
@@ -30,7 +33,7 @@
 // causal row has at least its own position valid, so that block exists.
 // Rows whose keys in a loaded tile are all masked go through the same
 // arithmetic as the TPU kernel (masked scores are -1e30, not -inf).
-#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -40,11 +43,6 @@ constexpr int kRows = 8;                // query rows per warp
 constexpr int kBQ = kWarps * kRows;     // query rows per CTA
 constexpr int kBK = 32;                 // keys per tile: one per lane
 constexpr float kNegInf = -1e30f;       // the TPU kernel's NEG_INF
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -60,10 +58,10 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (kBQ * D + kBK * (D + 4) + kBK * D + kBQ * kBK);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, int S, int H, int KV, int window, float scale) {
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+             float* __restrict__ o, int S, int H, int KV, int window, float scale) {
   constexpr int KS = D + 4;   // padded K row (floats)
   constexpr int DL = D / 32;  // output dims per lane
   extern __shared__ float4 smem4[];
@@ -76,14 +74,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const size_t q_stride = static_cast<size_t>(H) * D;   // between positions
   const size_t kv_stride = static_cast<size_t>(KV) * D;
-  const T* qb = q + static_cast<size_t>(b) * S * q_stride + static_cast<size_t>(h) * D;
+  const float* qb = q + static_cast<size_t>(b) * S * q_stride + static_cast<size_t>(h) * D;
   const size_t kv_off = static_cast<size_t>(b) * S * kv_stride + static_cast<size_t>(h / (H / KV)) * D;
-  const T* kb = k + kv_off;
-  const T* vb = v + kv_off;
+  const float* kb = k + kv_off;
+  const float* vb = v + kv_off;
 
   for (int i = tid; i < kBQ * D; i += kWarps * 32) {
     const int pos = q0 + i / D;
-    sq[i] = pos < S ? to_f(qb[pos * q_stride + i % D]) * scale : 0.f;
+    sq[i] = pos < S ? qb[pos * q_stride + i % D] * scale : 0.f;
   }
 
   float m[kRows], l[kRows], acc[kRows][DL];
@@ -106,8 +104,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     for (int i = tid; i < kBK * D; i += kWarps * 32) {
       const int r = i / D, d = i % D, pos = k0 + r;
       const bool in = pos < S;
-      sk[r * KS + d] = in ? to_f(kb[pos * kv_stride + d]) : 0.f;
-      sv[r * D + d] = in ? to_f(vb[pos * kv_stride + d]) : 0.f;
+      sk[r * KS + d] = in ? kb[pos * kv_stride + d] : 0.f;
+      sv[r * D + d] = in ? vb[pos * kv_stride + d] : 0.f;
     }
     __syncthreads();
 
@@ -166,48 +164,41 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     const int qpos = q0 + warp * kRows + r;
     if (qpos >= S) continue;
     const float denom = fmaxf(l[r], 1e-30f);
-    T* orow = o + static_cast<size_t>(b) * S * q_stride + qpos * q_stride + static_cast<size_t>(h) * D;
+    float* orow = o + static_cast<size_t>(b) * S * q_stride + qpos * q_stride + static_cast<size_t>(h) * D;
 #pragma unroll
-    for (int j = 0; j < DL; ++j) put(orow + lane + 32 * j, acc[r][j] / denom);
+    for (int j = 0; j < DL; ++j) orow[lane + 32 * j] = acc[r][j] / denom;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KV,
            int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, KV, window, scale);
+  flash_kernel<D><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), S, H, KV, window, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KV,
-             int D, int window, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, KV, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, KV, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, KV, window, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, o, B, S, H, KV, window, scale, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 }  // namespace
 
-// q (B, S, H, D), k / v (B, S, KV, D), o (B, S, H, D), contiguous, all
-// float32 (bf16 == 0) or all bfloat16 (bf16 == 1). D in {32, 64, 128, 256}.
+// The float32 entry (bf16 must be 0): q (B, S, H, D), k / v (B, S, KV, D),
+// o (B, S, H, D), contiguous. D in {32, 64, 128, 256}.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int B, int S, int H, int KV, int D, int window, int bf16,
                                       float scale, void* stream) {
-  if (H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_d<__nv_bfloat16>(q, k, v, o, B, S, H, KV, D, window, scale, st)
-              : launch_d<float>(q, k, v, o, B, S, H, KV, D, window, scale, st);
+  switch (D) {
+    case 32: return launch<32>(q, k, v, o, B, S, H, KV, window, scale, st);
+    case 64: return launch<64>(q, k, v, o, B, S, H, KV, window, scale, st);
+    case 128: return launch<128>(q, k, v, o, B, S, H, KV, window, scale, st);
+    case 256: return launch<256>(q, k, v, o, B, S, H, KV, window, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

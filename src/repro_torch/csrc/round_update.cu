@@ -26,8 +26,7 @@ __global__ void round_update_kernel(int* __restrict__ ls,
                                     const int* __restrict__ upd,
                                     const int* __restrict__ t,
                                     float* __restrict__ sums, int n, int C,
-                                    int B, int W) {
-  extern __shared__ int smem[];
+                                    int B, int W, bool vec) {
   const int b = blockIdx.y;
   const int row0 = blockIdx.x * kRows;
   for (int w = threadIdx.x; w < W; w += blockDim.x) {
@@ -48,8 +47,7 @@ __global__ void round_update_kernel(int* __restrict__ ls,
   const int row = row0 + warp;
   if (row >= n) return;
   const size_t rr = static_cast<size_t>(b) * n + row;
-  const float s = node_sum_row(hist + rr * B, ls + rr * C, C, B, t[b],
-                               total[rr], smem + warp * (B + 1));
+  const float s = node_sum_row(hist + rr * B, ls + rr * C, C, B, t[b], total[rr], vec);
   if ((threadIdx.x & 31) == 0) sums[rr] = s;
 }
 }  // namespace
@@ -60,19 +58,13 @@ extern "C" int round_update_launch(void* ls, void* hist, void* total,
                                    const void* upd, const void* t, void* sums,
                                    int batch, int n, int C, int B, int W,
                                    void* stream) {
-  const size_t smem = static_cast<size_t>(kRows) * (B + 1) * sizeof(int);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(round_update_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-  }
   const dim3 grid((n + kRows - 1) / kRows, batch);
-  round_update_kernel<<<grid, kRows * 32, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  round_update_kernel<<<grid, kRows * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int*>(ls), static_cast<int16_t*>(hist),
       static_cast<int*>(total), static_cast<const int*>(pos),
       static_cast<const int*>(track), static_cast<const int*>(r),
       static_cast<const uint8_t*>(valid), static_cast<const int*>(upd),
-      static_cast<const int*>(t), static_cast<float*>(sums), n, C, B, W);
+      static_cast<const int*>(t), static_cast<float*>(sums), n, C, B, W,
+      hist_rows_vec(hist, B));
   return static_cast<int>(cudaGetLastError());
 }

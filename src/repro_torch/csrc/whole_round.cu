@@ -9,27 +9,36 @@
 // reference's streams and enters as data.
 //
 // Bound: at the paper's scale (n = 100, W = 64, B = 1024, batch = 50) a
-// round moves about a megabyte and does a few million simple operations,
-// so its bound is well under a microsecond; the kernel is limited by its
-// serial phases and by launch latency, not by bytes or operations.
+// round moves about 6 MB and does a few million simple operations, so
+// its bound is about 2 us of bytes; the kernel is limited by the
+// latency of its dependent phases, not by bytes or operations.
 //
-// Design: one CTA per trajectory (grid = batch). The TPU kernel carries
-// the walk state and the theta accumulator from one grid step to the
-// next; CUDA blocks run in parallel in no order, so that carry becomes
-// phases inside the CTA, separated by __syncthreads(): (1) topology over
-// (n, D) and (n,), (2) walk epilogue over W, (3) observation, (4) theta
-// at the walks' rows only (one warp per walk, the shared node-sum of
-// survival.cuh), (5) decisions. The one-hot / compare tricks of the TPU
-// kernel are gone: gathers, atomicMax and shared-memory ranks are cheap
-// here. Large graphs (n in the tens of thousands) want a node-tiled grid
-// for phase (1) instead of one CTA per trajectory; that is left to a
-// later change.
+// Design: one CTA of 1,024 threads per trajectory (grid = batch). The
+// TPU kernel carries the walk state and the theta accumulator from one
+// grid step to the next; CUDA blocks run in parallel in no order, so that
+// carry becomes phases inside the CTA, separated by __syncthreads(): (1)
+// topology over (n, D) and (n,), (2) walk epilogue over W, (3)
+// observation, with each slot's leader (the lowest slot at its node) and
+// the choose, (4) theta once per distinct occupied row, (5) decisions.
+// Phase (4) dominates when a warp walks its rows' histograms in
+// dependent load-scan steps (85 % of an 8-warp kernel on an H100, by
+// clock64 stamps at its barriers), so each distinct row gets a warp of
+// its own (32 warps; theta is a function of the row, so slots that share
+// a node share it), and the warp reads the row in one pass (survival.cuh,
+// node_sum_row). The O(W^2) steps -- burst ranks, the leaders and the
+// choose -- give each slot a warp whose lanes split
+// the other slots. The hop builds its row's availability as a bit mask
+// with the chunk's loads in flight together, and every slot input is
+// loaded at the kernel's start. The one-hot / compare tricks of the TPU
+// kernel are gone: gathers, atomicMax and ballots are cheap here. Large
+// graphs (n in the tens of thousands) want a node-tiled grid for phase
+// (1) instead of one CTA per trajectory; that is left to a later change.
 #include <math.h>
 
 #include "survival.cuh"
 
 namespace {
-constexpr int kThreads = 256;
+constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 
 struct Round {
@@ -71,19 +80,68 @@ struct Round {
   uint8_t* fork_out;
   uint8_t* term_out;
   int n, C, B, D, W, K, plus;
+  bool vec;  // the histogram rows take 16-byte loads (node_sum_row)
 };
+
+// The availability of neighbours [k0, k0 + 32) of node p as a bit mask:
+// an edge up and both ends up, over the row's first deg slots. The row's
+// neighbour ids and edge states load unconditionally (the row holds D of
+// each), so a chunk's loads are in flight together.
+__device__ __forceinline__ unsigned avail_bits(const uint8_t* s_node, const int* nb,
+                                               const uint8_t* eu, int deg, int D, int k0) {
+  unsigned m = 0;
+#pragma unroll 8
+  for (int j = 0; j < 32; ++j) {
+    const int k = k0 + j;
+    if (k >= D) break;
+    const int v = nb[k];
+    const bool up = eu[k];
+    if (k < deg && up && s_node[v]) m |= 1u << j;
+  }
+  return m;
+}
+
+// A walk slot's inputs. Thread w loads slot w's at the kernel's start, so
+// their latency hides under the topology step; a thread whose loop
+// reaches a further slot (W > kThreads) loads that one where it is used.
+constexpr int kPreBursts = 2;
+struct Slot {
+  int pos, track;
+  bool active;
+  float u_move, u_pfail, u_fork, u_term, u_burst[kPreBursts];
+};
+
+__device__ __forceinline__ Slot load_slot(const Round& a, size_t bw, int w) {
+  Slot s;
+  s.pos = a.pos[bw + w];
+  s.track = a.track[bw + w];
+  s.active = a.active[bw + w];
+  s.u_move = a.u_move[bw + w];
+  s.u_pfail = a.u_pfail[bw + w];
+  s.u_fork = a.u_fork[bw + w];
+  s.u_term = a.u_term[bw + w];
+#pragma unroll
+  for (int kb = 0; kb < kPreBursts; ++kb) {
+    s.u_burst[kb] = kb < a.K ? a.u_burst[bw * a.K + static_cast<size_t>(kb) * a.W + w] : 0.f;
+  }
+  return s;
+}
 
 __global__ void __launch_bounds__(kThreads) whole_round_kernel(Round a) {
   extern __shared__ int smem[];
   const int b = blockIdx.x;
   const int n = a.n, C = a.C, B = a.B, D = a.D, W = a.W;
-  int* prefix = smem;  // kWarps * (B + 1)
-  int* s_pos = prefix + kWarps * (B + 1);  // W
-  int* s_prev = s_pos + W;  // W
-  int* s_act = s_prev + W;  // W
-  float* s_score = reinterpret_cast<float*>(s_act + W);  // W
-  float* s_theta = s_score + W;  // W
-  uint8_t* s_node = reinterpret_cast<uint8_t*>(s_theta + W);  // n
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int* s_pos = smem;  // W
+  int* s_prev = s_pos + W;  // W: last_seen before the update; then the distinct rows
+  int* s_rows = s_prev;
+  int* s_score = s_prev + W;  // W: burst scores; then each slot's leader
+  int* s_leader = s_score;
+  float* s_theta = reinterpret_cast<float*>(s_score + W);  // W, at leader slots
+  int* s_nrows = reinterpret_cast<int*>(s_theta + W);  // 1
+  uint8_t* s_act = reinterpret_cast<uint8_t*>(s_nrows + 1);  // W
+  uint8_t* s_chosen = s_act + W;  // W
+  uint8_t* s_node = s_chosen + W;  // n
 
   const float* pf = a.pf + b * 8;
   const int* pi = a.pi + b * 4;
@@ -94,6 +152,10 @@ __global__ void __launch_bounds__(kThreads) whole_round_kernel(Round a) {
   const bool enabled = pi[3] > 0;
   const size_t bn = static_cast<size_t>(b) * n;
   const size_t bw = static_cast<size_t>(b) * W;
+  const bool has_slot = threadIdx.x < W;
+  const Slot mine = has_slot ? load_slot(a, bw, threadIdx.x) : Slot{};
+  auto slot = [&](int w) { return w == threadIdx.x ? mine : load_slot(a, bw, w); };
+  if (threadIdx.x == 0) *s_nrows = 0;
 
   // (1) topology: node crash / recovery, symmetrized link fail / recovery
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
@@ -114,45 +176,59 @@ __global__ void __launch_bounds__(kThreads) whole_round_kernel(Round a) {
   // (2) walk epilogue: resident kills, the masked rank-select hop and
   // the probabilistic failures, one thread per walk
   for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    int p = a.pos[bw + w];
-    bool act = a.active[bw + w] && s_node[p];
+    const Slot sl = slot(w);
+    int p = sl.pos;
+    const bool here = s_node[p];
+    bool act = sl.active && here;
     const int deg = a.degs[p];
     const int* nb = a.nbrs + static_cast<size_t>(p) * D;
     const uint8_t* eu = a.edge_out + (bn + p) * D;
-    int adeg = 0;
-    for (int k = 0; k < D; ++k) {
-      adeg += (k < deg) && eu[k] && s_node[p] && s_node[nb[k]];
+    const unsigned m0 = here ? avail_bits(s_node, nb, eu, deg, D, 0) : 0u;
+    int adeg = __popc(m0);
+    for (int k0 = 32; k0 < D && here; k0 += 32) {
+      adeg += __popc(avail_bits(s_node, nb, eu, deg, D, k0));
     }
-    const int idx = min(static_cast<int>(__fmul_rn(a.u_move[bw + w],
-                                                   __int2float_rn(adeg))),
-                        adeg - 1);
-    int sel = 0, rank = -1;
-    for (int k = 0; k < D; ++k) {
-      const bool av = (k < deg) && eu[k] && s_node[p] && s_node[nb[k]];
-      rank += av;
-      if (av && rank == idx) {
-        sel = k;
-        break;
+    if (act && adeg > 0) {
+      // the idx-th available neighbour, in slot order
+      int idx = min(static_cast<int>(__fmul_rn(sl.u_move, __int2float_rn(adeg))), adeg - 1);
+      for (int k0 = 0;; k0 += 32) {
+        unsigned m = k0 == 0 ? m0 : avail_bits(s_node, nb, eu, deg, D, k0);
+        const int c = __popc(m);
+        if (idx < c) {
+          for (; idx > 0; --idx) m &= m - 1;
+          p = nb[k0 + __ffs(m) - 1];
+          break;
+        }
+        idx -= c;
       }
     }
-    if (act && adeg > 0) p = nb[sel];
-    act = act && !(a.u_pfail[bw + w] < p_fail);
+    act = act && !(sl.u_pfail < p_fail);
     s_pos[w] = p;
     s_act[w] = act;
   }
   __syncthreads();
-  // bursts in order: kill the bsz lowest-scored active walks
+  // bursts in order: kill the bsz lowest-scored active walks; a slot's
+  // rank is counted by a warp, its lanes splitting the other slots
   for (int kb = 0; kb < a.K; ++kb) {
-    const float* u = a.u_burst + (bw * a.K) + static_cast<size_t>(kb) * W;
+    float* score = reinterpret_cast<float*>(s_score);
     for (int w = threadIdx.x; w < W; w += blockDim.x) {
-      s_score[w] = s_act[w] ? u[w] : INFINITY;
+      float u = 0.f;
+      if (w == threadIdx.x && kb < kPreBursts) {
+#pragma unroll
+        for (int j = 0; j < kPreBursts; ++j) u = j == kb ? mine.u_burst[j] : u;
+      } else {
+        u = a.u_burst[bw * a.K + static_cast<size_t>(kb) * W + w];
+      }
+      score[w] = s_act[w] ? u : INFINITY;
     }
     __syncthreads();
     const int size = a.bsz[b * a.K + kb];
-    for (int w = threadIdx.x; w < W; w += blockDim.x) {
+    for (int w = warp; w < W; w += kWarps) {
+      const float own = score[w];
       int rank = 0;
-      for (int j = 0; j < W; ++j) rank += s_score[w] > s_score[j];
-      if (rank < size) s_act[w] = 0;
+      for (int j = lane; j < W; j += 32) rank += own > score[j];
+      rank = __reduce_add_sync(0xffffffffu, rank);
+      if (lane == 0 && rank < size) s_act[w] = 0;
     }
     __syncthreads();
   }
@@ -164,7 +240,7 @@ __global__ void __launch_bounds__(kThreads) whole_round_kernel(Round a) {
     s_act[w] = act;
     a.pos_out[bw + w] = p;
     a.act_out[bw + w] = act;
-    s_prev[w] = a.ls[(bn + p) * C + a.track[bw + w]];
+    s_prev[w] = a.ls[(bn + p) * C + slot(w).track];
   }
   __syncthreads();
 
@@ -180,35 +256,51 @@ __global__ void __launch_bounds__(kThreads) whole_round_kernel(Round a) {
       hist_add_one(a.hist, row * B + bin);
       atomicAdd(&a.total[row], 1);
     }
-    if (act) atomicMax(&a.ls[row * C + a.track[bw + w]], t);
+    if (act) atomicMax(&a.ls[row * C + slot(w).track], t);
   }
-  __syncthreads();
-
-  // (4) theta at the walks' rows: node sum - 1/2, one warp per walk
-  const int warp = threadIdx.x >> 5;
+  // each slot's leader (the lowest slot at its node: theta is a function
+  // of the row, so it is computed once per distinct row) and whether it
+  // is chosen (the lowest active slot at its node runs the protocol)
   for (int w = warp; w < W; w += kWarps) {
-    const size_t row = bn + s_pos[w];
-    const float s = node_sum_row(a.hist + row * B, a.ls + row * C, C, B, t,
-                                 a.total[row], prefix + warp * (B + 1));
-    if ((threadIdx.x & 31) == 0) {
-      const float th = __fsub_rn(s, 0.5f);
-      s_theta[w] = th;
-      a.theta_out[bw + w] = th;
+    const int p = s_pos[w];
+    unsigned first = 0xffffffffu;  // lowest slot j < w at p, if any
+    bool active_before = false;
+    for (int j0 = 0; j0 < w; j0 += 32) {
+      const int j = j0 + lane;
+      const bool same = j < w && s_pos[j] == p;
+      const unsigned hits = __ballot_sync(0xffffffffu, same);
+      if (hits && first == 0xffffffffu) first = j0 + __ffs(hits) - 1;
+      active_before |= __any_sync(0xffffffffu, same && s_act[j]) != 0;
     }
+    if (lane == 0) {
+      s_leader[w] = first == 0xffffffffu ? w : static_cast<int>(first);
+      s_chosen[w] = s_act[w] && !active_before;
+    }
+  }
+  __syncthreads();  // s_prev is consumed: it holds the distinct rows next
+  for (int w = threadIdx.x; w < W; w += blockDim.x) {
+    if (s_leader[w] == w) s_rows[atomicAdd(s_nrows, 1)] = w;
   }
   __syncthreads();
 
-  // (5) decisions: the lowest active slot at each node runs the protocol
+  // (4) theta at the distinct rows: node sum - 1/2, one warp per row
+  for (int i = warp; i < *s_nrows; i += kWarps) {
+    const int w = s_rows[i];
+    const size_t row = bn + s_pos[w];
+    const float s = node_sum_row(a.hist + row * B, a.ls + row * C, C, B, t, a.total[row],
+                                 a.vec);
+    if (lane == 0) s_theta[w] = __fsub_rn(s, 0.5f);
+  }
+  __syncthreads();
+
+  // (5) decisions
   for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    const bool act = s_act[w];
-    bool chosen = act;
-    for (int j = 0; j < w && chosen; ++j) {
-      if (s_act[j] && s_pos[j] == s_pos[w]) chosen = false;
-    }
-    const float th = s_theta[w];
-    const bool fork = chosen && th < eps && a.u_fork[bw + w] < p_fork && enabled;
-    const bool term = a.plus && chosen && th > eps2 &&
-                      a.u_term[bw + w] < p_fork && enabled && !fork;
+    const Slot sl = slot(w);
+    const bool chosen = s_chosen[w];
+    const float th = s_theta[s_leader[w]];
+    const bool fork = chosen && th < eps && sl.u_fork < p_fork && enabled;
+    const bool term = a.plus && chosen && th > eps2 && sl.u_term < p_fork && enabled && !fork;
+    a.theta_out[bw + w] = th;
     a.chosen_out[bw + w] = chosen;
     a.fork_out[bw + w] = fork;
     a.term_out[bw + w] = term;
@@ -267,11 +359,12 @@ extern "C" int whole_round_launch(
   a.W = W;
   a.K = K;
   a.plus = plus;
-  const size_t smem = (static_cast<size_t>(kWarps) * (B + 1) + 5 * W) * 4 + n;
+  a.vec = hist_rows_vec(hist, B);
+  const size_t smem = (4 * static_cast<size_t>(W) + 1) * 4 + 2 * static_cast<size_t>(W) + n;
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(whole_round_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+    const cudaError_t e = cudaFuncSetAttribute(
+        whole_round_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
   whole_round_kernel<<<batch, kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(a);

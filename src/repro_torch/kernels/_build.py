@@ -12,7 +12,8 @@ Flags keep float arithmetic IEEE-exact: no ``--use_fast_math``,
 ``-prec-div=true`` and ``-fmad=false``, since theta is held bitwise to
 the reference's node-sum formula. The attention and SSD kernels, which
 are held to a tolerance, ask for their fused multiply-adds explicitly
-(``__fmaf_rn``), so the same flags serve every source.
+(``__fmaf_rn``) or run them on the tensor cores, so the same flags serve
+every source.
 """
 from __future__ import annotations
 
@@ -33,7 +34,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-prec-div=true", "-prec-sqrt=true",
     "-fmad=false", "-ftz=false", "-Xptxas", "-v",
 )
-SOURCES = ("theta_sums", "round_update", "whole_round", "flash_attention", "ssd_intra_chunk")
+SOURCES = (
+    "theta_sums", "round_update", "whole_round", "flash_attention", "flash_attention_sm90",
+    "ssd_intra_chunk",
+)
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -59,36 +63,40 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
 
 
-def build_all() -> float:
+def build_all() -> dict:
     """Compile every source whose library is missing, in parallel;
-    returns the seconds spent (0 when every library was cached). The
+    returns each compiled source's seconds, from the common start to its
+    compiler's exit (empty when every library was cached). The
     compiler's register and shared-memory report is kept beside each
     library as ``.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [n for n in SOURCES if not _lib_path(n).exists()]
     if not todo:
-        return 0.0
+        return {}
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    procs = []
+    procs = {}
     for name in todo:
         out = _lib_path(name)
         tmp = out.with_suffix(f".tmp{os.getpid()}")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )))
-    errors = []
-    for name, out, tmp, proc in procs:
-        log, _ = proc.communicate()
-        out.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu:\n{log}")
-        else:
-            os.replace(tmp, out)  # atomic: concurrent builders agree
+        with open(out.with_suffix(".log"), "w") as log:
+            procs[name] = (out, tmp, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT))
+    errors, seconds = [], {}
+    while procs:
+        for name, (out, tmp, proc) in list(procs.items()):
+            if proc.poll() is None:
+                continue
+            del procs[name]
+            seconds[name] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for {name}.cu:\n{out.with_suffix('.log').read_text()}")
+            else:
+                os.replace(tmp, out)  # atomic: concurrent builds agree
+        time.sleep(0.05)
     if errors:
         raise RuntimeError("\n".join(errors))
-    return time.perf_counter() - t0
+    return seconds
 
 
 def load(name: str) -> ctypes.CDLL:

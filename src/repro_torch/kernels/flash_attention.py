@@ -2,12 +2,16 @@
 
 Replaces ``src/repro/kernels/flash_attention.py::flash_attention``, the
 Pallas kernel that ``cfg.use_pallas`` switches into the models' prefill.
-The CUDA kernel (``csrc/flash_attention.cu``) streams 32-key K/V tiles
-through shared memory for a 32-row query tile with the online-softmax
-recurrence in f32, and skips key tiles wholly above the diagonal or
-before the window (exact: see the source). Unlike the TPU kernel it
-takes the model layout (B, S, H, D) directly, so the model needs no
-transposes. Its plain version is ``kernels/ref.py::mha_ref``'s formula.
+Two CUDA kernels share one C entry (``flash_attention_launch``) and are
+chosen by dtype: bfloat16 runs on the tensor cores
+(``csrc/flash_attention_sm90.cu``: TMA-fed 64-key K/V tiles, wgmma for
+Q.K^T and P.V, 128 query rows per CTA), float32 on the CUDA cores in
+exact float32 (``csrc/flash_attention.cu``: 32-row query tiles, 32-key
+tiles). Both keep the online-softmax recurrence in f32 and skip key
+tiles wholly above the diagonal or before the window (exact: see the
+sources). Unlike the TPU kernel they take the model layout (B, S, H, D)
+directly, so the model needs no transposes. The plain version is
+``kernels/ref.py::mha_ref``'s formula.
 """
 from __future__ import annotations
 
@@ -50,8 +54,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window
     sliding window when ``window > 0``. Shapes are checked as the
     reference checks them (H a multiple of KV, S of its default block),
     on every device. CPU tensors take the plain version; CUDA tensors
-    launch the kernel, which also needs D in ``HEAD_DIMS`` (it tiles by
-    32 whatever the block)."""
+    launch the kernel of their dtype, which also needs D in
+    ``HEAD_DIMS`` (its own tiles mask the ragged edge, whatever the
+    block) and, in bfloat16, 16-byte-aligned inputs (its TMA loads)."""
     B, S, H, D = q.shape
     KV = k.shape[2]
     if H % KV:
@@ -69,12 +74,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window
         return flash_attention_plain(q, k, v, window)
     if D not in HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes head dims {HEAD_DIMS}, got {D}")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and any(p % 16 for p in ptrs):
+        raise ValueError("bfloat16 q, k and v must be 16-byte aligned (TMA)")
     out = torch.empty_like(q)
-    fn = _build.load("flash_attention").flash_attention_launch
+    fn = _build.load("flash_attention_sm90" if bf16 else "flash_attention").flash_attention_launch
     fn.argtypes = [P] * 4 + [I] * 7 + [ctypes.c_float, P]
     fn.restype = I
-    status = fn(*ptrs, out.data_ptr(), B, S, H, KV, D, int(window),
-                int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(D), stream())
+    status = fn(*ptrs, out.data_ptr(), B, S, H, KV, D, int(window), int(bf16),
+                1.0 / math.sqrt(D), stream())
     _build.check(status, "flash_attention")
     flash_attention.launches += 1
     return out

@@ -8,7 +8,8 @@ serves ``estimator_impl="pallas"`` in the unfused round.
 Replaces ``src/repro/kernels/theta_survival.py::theta_sums``. The TPU
 kernel restates the survival gather as a (C, B) compare-accumulate
 because a TPU avoids gathers; the CUDA kernel (``csrc/theta_sums.cu``)
-gathers from a per-row prefix table in shared memory instead. Bound:
+reads each row once into registers and gathers the clamped return
+times' prefix counts from them by warp shuffles instead. Bound:
 bytes (each row's C + B counters are read once). The node-sum is exact
 integer arithmetic up to one division, so the kernel is bitwise its
 plain version and the reference.

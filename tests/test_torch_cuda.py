@@ -4,9 +4,10 @@ and SSD kernels within the reference kernel tests' tolerances (2e-4 f32
 attention, 3e-2 bf16 attention, 3e-4 SSD), and the smoke models served
 with and without the kernels. Needs an NVIDIA GPU: every test here is
 marked ``cuda`` and skips elsewhere. It imports no JAX, so it runs on a
-machine with torch and nvcc only:
+machine with torch and nvcc only (``--noconftest``: the test package's
+conftest imports JAX):
 
-    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 import pytest
 
@@ -45,7 +46,8 @@ def _observation(rng, batch, n, C, B, W, t, dev):
     pos = rng.integers(0, n, (batch, W)).astype(np.int32)
     track = rng.integers(0, C, (batch, W)).astype(np.int32)
     active = rng.random((batch, W)) < 0.8
-    prev = np.take_along_axis(np.take_along_axis(ls, pos[..., None], 1)[..., 0], track, 1)
+    rows = np.take_along_axis(ls, pos[..., None], 1)  # (batch, W, C)
+    prev = np.take_along_axis(rows, track[..., None], 2)[..., 0]
     r = (t - prev).astype(np.int32)
     valid = active & (prev != -1) & (r >= 1)
     upd = np.where(active, t, -1).astype(np.int32)
@@ -62,7 +64,12 @@ def _assert_same(got, want):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("batch,n,C,B,W", [(2, 19, 16, 64, 16), (50, 100, 64, 1024, 64)])
+@pytest.mark.parametrize("batch,n,C,B,W", [
+    (2, 19, 16, 64, 16),
+    (50, 100, 64, 1024, 64),
+    (2, 19, 100, 1000, 16),  # two-byte loads (B not a multiple of 8); more columns than preloaded
+    (2, 100, 64, 2048, 64),  # two segments of 1,024 bins
+])
 def test_cuda_observation_kernels_bitwise(cuda, batch, n, C, B, W):
     x = _observation(np.random.default_rng(n), batch, n, C, B, W, 70, cuda)
     before = (round_update.launches, theta_sums.launches)
@@ -73,12 +80,23 @@ def test_cuda_observation_kernels_bitwise(cuda, batch, n, C, B, W):
 
 
 @pytest.mark.parametrize("plus", [False, True])
-@pytest.mark.parametrize("batch,n,W,C,B", [(2, 19, 16, 16, 64), (50, 100, 64, 64, 1024)])
-def test_cuda_whole_round_bitwise(cuda, plus, batch, n, W, C, B):
+@pytest.mark.parametrize("batch,n,W,C,B,K,crowded", [
+    pytest.param(2, 19, 16, 16, 64, 2, False, id="2-19-16-16-64"),
+    pytest.param(50, 100, 64, 64, 1024, 2, False, id="50-100-64-64-1024"),
+    pytest.param(4, 100, 50, 64, 1024, 2, False, id="W50"),  # W not a multiple of 32
+    pytest.param(4, 100, 64, 64, 1024, 2, True, id="crowded"),  # every walk starts on 3 nodes
+    pytest.param(2, 100, 64, 64, 2048, 2, False, id="B2048"),
+    pytest.param(2, 2000, 64, 64, 1024, 2, False, id="n2000"),
+    pytest.param(4, 100, 64, 64, 1024, 3, False, id="K3"),  # more bursts than the kernel prefetches
+    pytest.param(2, 2000, 1100, 1100, 64, 2, False, id="W1100"),  # more slots than threads
+])
+def test_cuda_whole_round_bitwise(cuda, plus, batch, n, W, C, B, K, crowded):
     rng = np.random.default_rng(n + plus)
     g = make_graph("regular", n + n % 2, seed=0, degree=4)
-    n, D, K = g.n, g.max_degree, 2
+    n, D = g.n, g.max_degree
     x = _observation(rng, batch, n, C, B, W, 70, cuda)
+    if crowded:  # many slots share a row: theta is computed once per distinct row
+        x[3] = torch.as_tensor(rng.choice([3, 5, 8], (batch, W)).astype(np.int32), device=cuda)
     to = lambda a: torch.as_tensor(a, device=cuda)  # noqa: E731
     f32 = lambda *s: to(rng.random(s).astype(np.float32))  # noqa: E731
     params_f = np.tile(np.array([0.05, 0.1, 0.1, 0.3, 0.4, 7.0, 8.0, 0.5], np.float32), (batch, 1))
@@ -108,6 +126,11 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
 @pytest.mark.parametrize("B,S,H,KV,D,window", [
     (2, 128, 4, 4, 32, 0), (2, 256, 8, 2, 64, 96), (1, 7, 4, 2, 32, 0),
     (1, 512, 32, 4, 128, 0), (1, 256, 4, 1, 256, 96),
+    # shorter than, equal to and ragged against the bf16 kernel's 128-row
+    # query tile and 64-key tiles; GQA ratios 1, 4, 8; window edges inside
+    # a key tile (96, 100); every head dim
+    (2, 64, 8, 8, 64, 0), (1, 384, 8, 1, 128, 100), (2, 512, 16, 4, 256, 96),
+    (1, 128, 8, 1, 32, 100), (1, 384, 4, 4, 256, 0), (2, 64, 4, 1, 128, 0),
 ])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, B, S, H, KV, D, window):
     rng = np.random.default_rng(S + D + window)

@@ -67,13 +67,16 @@ def test_theta_sums_matches_pallas(n):
         np.testing.assert_array_equal(np.asarray(want), got[b].numpy())
 
 
-def _whole_round_inputs(n, seed, K=2, W=16, C=16, B=64):
+def _whole_round_inputs(n, seed, K=2, W=16, C=16, B=64, crowded=False):
     """A churny whole round: partial topology masks, live rates, a firing
-    burst, a Byzantine and a Pac-Man node (numpy, batched)."""
+    burst, a Byzantine and a Pac-Man node (numpy, batched). ``crowded``
+    starts every walk on one of 3 nodes, so many slots share a row."""
     g = erdos_renyi_graph(n, seed=1)
     D = g.max_degree
     rng = np.random.default_rng(seed)
     ls, hist, total, pos, track, _r, _v, _u, t = _obs_batch(n, C, B, W, seed)
+    if crowded:  # nodes where both a fork and a termination fire
+        pos = np.random.default_rng(0).choice([0, 1, 9], pos.shape).astype(np.int32)
     f32 = lambda *s: rng.random(s).astype(np.float32)  # noqa: E731
     params_f = np.array([[0.05, 0.1, 0.1, 0.3, 0.4, 7.0, 8.0, 0.5]] * BATCH, np.float32)
     params_i = np.array([[70, 2, 4, 1], [70, -1, -1, 1]], np.int32)
@@ -94,9 +97,12 @@ WHOLE_OUT = ("last_seen", "hist", "total", "node_up", "edge_up", "pos", "active"
              "chosen", "fork", "term")
 
 
-@pytest.mark.parametrize("plus", [False, True])
-def test_whole_round_matches_pallas(plus):
-    x = _whole_round_inputs(19, seed=3)
+@pytest.mark.parametrize("plus,crowded", [
+    pytest.param(False, False, id="False"), pytest.param(True, False, id="True"),
+    pytest.param(False, True, id="crowded-False"), pytest.param(True, True, id="crowded-True"),
+])
+def test_whole_round_matches_pallas(plus, crowded):
+    x = _whole_round_inputs(19, seed=3, crowded=crowded)
     got = whole_round(*_torch(x.values()), decafork_plus=plus)
     nbr = x["neighbors"]
     for b in range(BATCH):
