@@ -13,10 +13,11 @@ seeds), and 6500 steps still fire both bursts (steps 2000 and 6000).
 Phases, each printed on its own line:
 
 1. device: nvidia-smi's name and power limit, torch's device name, and
-   the build of the kernels' six sources from ``src/repro_torch/csrc``
+   the build of the kernels' seven sources from ``src/repro_torch/csrc``
    (nvcc, sm_90a, one process per source, all at once), with each
-   source's seconds; the bf16 attention library's SASS must hold HGMMA
-   (wgmma) instructions, and its registers and spills are printed;
+   source's seconds; the bf16 attention library's and the bf16 SSD
+   library's SASS must hold HGMMA (wgmma) instructions, and their
+   registers and spills are printed;
 2. kernels: each kernel against its plain PyTorch version on the card,
    on numpy-seeded inputs at its path's shapes. The round kernels
    bitwise (batch 50, n 100, C = W = 64, B = 1024, D = 8; round_update /
@@ -25,7 +26,8 @@ Phases, each printed on its own line:
    same batch and S at D 64 and D 256), paper-rwsgd's (S 128, H 8, KV 4,
    D 32, f32, 2e-4) and a windowed shape (window 96, S 256, bf16);
    ssd_intra_chunk at mamba2-1.3b's (batch 4, 2 chunks of 256, H 64,
-   P 64, N 128, bf16 B / C, 3e-4).
+   P 64, N 128, 3e-4) with bf16 B / C (the served dtype, the row;
+   tensor cores) and with f32 B / C (the float32 gate's; CUDA cores).
    Median times by CUDA events: each kernel's from Python (``ms``: eager,
    the wrapper's host cost included, as since the first slice) and on the
    device alone (``device_ms``: the same calls replayed as a CUDA graph),
@@ -57,7 +59,9 @@ Phases, each printed on its own line:
    torch on the card) within ``F32_LOGIT_RTOL`` of the logit scale, and
    its greedy tokens must equal the plain run's wherever the plain run's
    top-2 logit gap exceeds that bound; the served dtype's gap is
-   recorded.
+   recorded, and for the SSM model the float32 gap with the intra-chunk
+   block computed in float64 (how far an exact block lands from the
+   plain path's float32 rounding).
 
 Before the last line it prints the card's name and power limit, then one
 JSON object with every kernel's launches, error and times; the last line
@@ -318,25 +322,27 @@ def check_kernels(rng, graph, dev, large_n=100_000):
     return rows
 
 
-def attention_build():
-    """The bf16 attention library holds wgmma (HGMMA in its SASS, read by
-    cuobjdump beside nvcc) and TMA loads (UTMALDG); returns the counts
-    and the compiler's register / spill lines."""
+def sass_check(source):
+    """The tensor-core library of ``source`` holds wgmma (HGMMA in its
+    SASS, read by cuobjdump beside nvcc); returns the counts of HGMMA and
+    of TMA / bulk copies (UTMALDG, UBLKCP) and the compiler's register /
+    spill lines."""
     from pathlib import Path
 
     from repro_torch.kernels import _build
 
-    lib = _build._lib_path("flash_attention_sm90")
+    lib = _build._lib_path(source)
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
     ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text().splitlines()
              if "registers" in ln or "spill" in ln]
-    out = dict(hgmma=sass.count("HGMMA"), utmaldg=sass.count("UTMALDG"), ptxas=ptxas)
-    log("device", attention_sass_HGMMA=out["hgmma"], UTMALDG=out["utmaldg"],
-        ptxas=repr("; ".join(ptxas)))
+    out = dict(hgmma=sass.count("HGMMA"), utmaldg=sass.count("UTMALDG"),
+               ublkcp=sass.count("UBLKCP"), ptxas=ptxas)
+    log("device", library=source, sass_HGMMA=out["hgmma"], UTMALDG=out["utmaldg"],
+        UBLKCP=out["ublkcp"], ptxas=repr("; ".join(ptxas)))
     if out["hgmma"] == 0:
-        raise AssertionError("flash_attention_sm90: no HGMMA in the SASS (wgmma not issued)")
+        raise AssertionError(f"{source}: no HGMMA in the SASS (wgmma not issued)")
     return out
 
 
@@ -419,30 +425,38 @@ def check_model_kernels(rng, dev):
     B, nc, Q, H, P, N = 4, 2, 256, 64, 64, 128  # mamba2-1.3b, prompt 512
     x = f32(B, nc, Q, H, P)
     da = torch.cumsum(-torch.nn.functional.softplus(f32(B, nc, Q, H)) * torch.exp(f32(H)), dim=2)
-    b, c = f32(B, nc, Q, N).to(torch.bfloat16), f32(B, nc, Q, N).to(torch.bfloat16)
-    got = ssd_intra_chunk(x, da, b, c)
-    want = ssd_intra_chunk_plain(x, da, b, c)
-    err = 0.0
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=3e-4, atol=3e-4)
-        err = max(err, float((g - w).abs().max()))
-    ms = cuda_ms(lambda: ssd_intra_chunk(x, da, b, c), 20)
-    device_ms = cuda_ms(lambda: ssd_intra_chunk(x, da, b, c), 20, graph=True)
-    plain_ms = cuda_ms(lambda: ssd_intra_chunk_plain(x, da, b, c), 3, 3)
+    b, c = f32(B, nc, Q, N), f32(B, nc, Q, N)
     tri = Q * (Q + 1) // 2
     # C.B^T once per chunk; per head y = W.x over t <= q and the state B^T.(x scaled)
     flops = B * nc * (2 * N * tri + H * (2 * P * tri + 2 * P * N * Q))
-    nbytes = B * nc * (Q * H * P * 4 * 2 + Q * H * 4 + 2 * Q * N * 2 + H * P * N * 4)
-    bound, by = tc_bound(nbytes, flops, "float32")
-    shape = f"B={B},nc={nc},Q={Q},H={H},P={P},N={N},x f32,B/C bf16"
-    log("kernels", kernel="ssd_intra_chunk", shape=shape, max_abs_err=err, tol=3e-4,
-        ms=f"{ms:.6f}", device_ms=f"{device_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
-        bound_ms=f"{bound:.6f}", bound_by=by, bytes=nbytes, flops=flops)
-    rows["ssd_intra_chunk"] = dict(
-        name="ssd_intra_chunk", route="cuda", source="src/repro_torch/csrc/ssd_intra_chunk.cu",
-        replaces="src/repro/kernels/ssd_scan.py:53", max_abs_err=err, ms=ms, device_ms=device_ms,
-        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None, library_device_ms=None,
-        shape=shape, bytes=nbytes, flops=flops, tol=3e-4)
+    for dt in ("bfloat16", "float32"):  # the served dtype (the row), then the float32 gate's
+        bd, cd = b.to(getattr(torch, dt)), c.to(getattr(torch, dt))
+        got = ssd_intra_chunk(x, da, bd, cd)
+        want = ssd_intra_chunk_plain(x, da, bd, cd)
+        err = 0.0
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=3e-4, atol=3e-4)
+            err = max(err, float((g - w).abs().max()))
+        ms = cuda_ms(lambda: ssd_intra_chunk(x, da, bd, cd), 20)
+        device_ms = cuda_ms(lambda: ssd_intra_chunk(x, da, bd, cd), 20, graph=True)
+        plain_ms = cuda_ms(lambda: ssd_intra_chunk_plain(x, da, bd, cd), 3, 3)
+        nbytes = B * nc * (Q * H * P * 4 * 2 + Q * H * 4 + 2 * Q * N * bd.element_size()
+                           + H * P * N * 4)
+        bound, by = tc_bound(nbytes, flops, "float32")
+        shape = f"B={B},nc={nc},Q={Q},H={H},P={P},N={N},x f32,B/C {dt}"
+        log("kernels", kernel="ssd_intra_chunk", shape=shape, max_abs_err=err, tol=3e-4,
+            ms=f"{ms:.6f}", device_ms=f"{device_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
+            bound_ms=f"{bound:.6f}", bound_by=by, bytes=nbytes, flops=flops)
+        src = "ssd_intra_chunk_sm90.cu" if dt == "bfloat16" else "ssd_intra_chunk.cu"
+        ent = dict(
+            name="ssd_intra_chunk", route="cuda", source=f"src/repro_torch/csrc/{src}",
+            replaces="src/repro/kernels/ssd_scan.py:53", max_abs_err=err, ms=ms,
+            device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+            library_device_ms=None, shape=shape, bytes=nbytes, flops=flops, tol=3e-4)
+        if "ssd_intra_chunk" in rows:
+            rows["ssd_intra_chunk"].setdefault("other_shapes", []).append(ent)
+        else:
+            rows["ssd_intra_chunk"] = ent
     return [rows["flash_attention"], rows["ssd_intra_chunk"]]
 
 
@@ -480,6 +494,35 @@ def prefill_launches(model, params, tokens, kern, layers, what):
         raise AssertionError(f"{what}: {kern.__name__} launched {kern.launches - before} "
                              f"times in one prefill, expected {want}")
     return last
+
+
+def ssd_in_f64_gap(model, params, toks, plain32):
+    """The float32 prefill logits' gap to the plain path when the SSD
+    intra-chunk block is computed in float64 (then rounded to float32)
+    instead of by the kernel: how far an exact block lands from the plain
+    path's float32 rounding. Recorded, not gated."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    def block_f64(x, da, b, c):
+        x, da, b, c = x.double(), da.double(), b.double(), c.double()
+        Q = x.shape[2]
+        tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+        diff = da[:, :, :, None, :] - da[:, :, None, :, :]
+        decay = torch.exp(torch.where(tri[None, None, :, :, None], diff, -1e30))
+        y = torch.einsum("bcqth,bcthp->bcqhp",
+                         torch.einsum("bcqn,bctn->bcqt", c, b)[..., None] * decay, x)
+        st = torch.einsum("bctn,bcthp->bchpn", b, x * torch.exp(da[:, :, -1:, :] - da)[..., None])
+        return y.float(), st.float()
+
+    kern = ops.ssd_intra_chunk
+    ops.ssd_intra_chunk = block_f64
+    try:
+        last, _ = model.prefill(params, {"tokens": toks})
+    finally:
+        ops.ssd_intra_chunk = kern
+    return float((last - plain32).abs().max())
 
 
 def serve_models(dev):
@@ -565,6 +608,7 @@ def serve_models(dev):
                     raise AssertionError(f"{arch}: stream {b} step {i}: kernel token "
                                          f"{int(gen32[b, i])} != plain {int(plain_gen32[b, i])} "
                                          f"with top-2 gap {float(gaps[b, i])} > {bound}")
+        exact_gap = ssd_in_f64_gap(model, params, toks, plain32) if cfg.arch_type == "ssm" else None
         prefill_ms = stats["prefill_s"] * 1e3
         out = dict(arch=cfg.name, params=n_params, dtype=cfg.dtype, layers=L, batch=batch,
                    prompt=prompt, new_tokens=new, init_s=init_s, init_peak_bytes=init_peak,
@@ -573,6 +617,7 @@ def serve_models(dev):
                    served_dtype_logit_gap=served_gap, served_dtype_logit_scale=served_scale,
                    f32_logits_max_abs_err=err, f32_logits_bound=bound, f32_logit_scale=scale,
                    f32_tokens_compared=compared, f32_streams_stopped_at_a_near_tie=ties,
+                   f32_logits_err_with_ssd_block_in_f64=exact_gap,
                    kernel=kern.__name__, kernel_launches_per_prefill=L)
         res[arch] = out
         log("serve", arch=cfg.name, params=n_params, dtype=cfg.dtype, init_s=f"{init_s:.3f}",
@@ -581,6 +626,7 @@ def serve_models(dev):
             decode_tokens_per_s=f"{stats['tokens_per_s']:.1f}",
             served_logit_gap=f"{served_gap}/{served_scale}", f32_logits_max_abs_err=err,
             f32_bound=f"{bound:.3g}", f32_tokens_compared=compared, near_ties=ties,
+            f32_err_with_ssd_block_in_f64=exact_gap,
             launches_per_prefill=f"{kern.__name__}:{L}")
         del params, model, plain
         torch.cuda.empty_cache()
@@ -793,7 +839,7 @@ def main() -> int:
     log("device", nvidia_smi=repr(smi), torch_device=repr(name),
         torch=torch.__version__, cuda=torch.version.cuda, build_s=f"{build_s:.2f}",
         **{f"build_s_{k}": f"{v:.2f}" for k, v in build.items()})
-    sass = attention_build()
+    sass = {src: sass_check(src) for src in ("flash_attention_sm90", "ssd_intra_chunk_sm90")}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -825,7 +871,7 @@ def main() -> int:
 
     detail = dict(nvidia_smi=smi, device=name, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
-                  build_s_by_source=build, attention_sass=sass, kernels=rows,
+                  build_s_by_source=build, sass=sass, kernels=rows,
                   main=main_res, profile=profile, parity=parity, unfused=unfused, serve=serve)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:

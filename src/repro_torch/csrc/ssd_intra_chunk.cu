@@ -1,19 +1,28 @@
-// ssd_intra_chunk: the Mamba-2 SSD intra-chunk block and each chunk's
-// outgoing state, for every (batch, chunk) and head:
+// ssd_intra_chunk, float32 B / C, on the CUDA cores in exact float32:
+// the Mamba-2 SSD intra-chunk block and each chunk's outgoing state, for
+// every (batch, chunk) and head:
 //
 //   y[q, h, p]  = sum_{t <= q} (C_q . B_t) exp(a[q, h] - a[t, h]) x[t, h, p]
 //   st[h, p, n] = sum_t B[t, n] exp(a[Q-1, h] - a[t, h]) x[t, h, p]
 //
 // with x (B, nc, Q, H, P) f32 (dt-weighted inputs), a = da_cs
 // (B, nc, Q, H) f32 (in-chunk cumulative log-decay), B / C (B, nc, Q, N)
-// f32 or bfloat16 (raw 16-bit words, upcast here with cuda_bf16.h); y and
-// st are f32.
+// f32; y and st are f32. bfloat16 B / C (the served dtype) run on the
+// tensor cores (ssd_intra_chunk_sm90.cu); the wrapper picks the library by
+// dtype, as it does for flash_attention.
 //
-// Replaces src/repro/kernels/ssd_scan.py::ssd_intra_chunk (_ssd_kernel).
-// The TPU kernel builds the (Q, Q, H) decay tensor of a chunk in VMEM; at
-// mamba2-1.3b (Q 256, H 64) that is 16 MB, far beyond a CTA. Here the
-// causal mask becomes loop bounds (t <= q) and the decay is computed
-// where it is used, exp(a_q - a_t) in f32.
+// Replaces src/repro/kernels/ssd_scan.py::ssd_intra_chunk (_ssd_kernel)
+// for float32 B / C. Why float32 stays here: the float32 serving gate
+// holds mamba2-1.3b's kernel path to its plain torch path within 1e-4 of
+// the logit scale, and through 48 layers of random weights that model
+// amplifies any rounding that differs from torch's float32 einsums past
+// it: an intra-chunk block computed in float64 and rounded misses it, and
+// so does the 3xTF32 tensor-core version (chip_smoke.py records the
+// float64 one). These kernels sum each output as one ascending chain of
+// float32 FMAs, as the einsums do, and meet it. The TPU kernel builds the (Q, Q, H) decay tensor of a
+// chunk in VMEM; at mamba2-1.3b (Q 256, H 64) that is 16 MB, far beyond a
+// CTA. Here the causal mask becomes loop bounds (t <= q) and the decay is
+// computed where it is used, exp(a_q - a_t) in f32.
 //
 // Bound: at mamba2-1.3b's prefill (batch 4, nc 2, Q 256, H 64, P 64,
 // N 128) the block needs ~4.4 GFLOP against ~85 MB of x / y / states, so
@@ -30,9 +39,7 @@
 //   3. states: grid (output tiles, heads, chunks); x[t, h, :] is scaled by
 //      exp(a_last - a_t) as it is staged, and each thread sums 32 (p, n)
 //      outputs over the chunk, 32 time steps at a time.
-// Sharing the scores removes the per-head recomputation of C . B^T, which
-// at mamba2-1.3b would be twice the FLOPs of the y product.
-#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -42,13 +49,9 @@ constexpr int kThreads = 256;
 constexpr int kMaxPPerThread = 16;  // y: P <= 8 * 16
 constexpr int kStOut = 32;          // states: outputs per thread
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 // scores[bc, q, t] = sum_n C[bc, q, n] B[bc, t, n] for tiles with t-tile <= q-tile
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-scores_kernel(const T* __restrict__ bm, const T* __restrict__ cm, float* __restrict__ scores,
+scores_kernel(const float* __restrict__ bm, const float* __restrict__ cm, float* __restrict__ scores,
               int Q, int N) {
   const int tq = blockIdx.x, tt = blockIdx.y, bc = blockIdx.z;
   if (tt > tq) return;  // wholly above the diagonal: never read
@@ -61,8 +64,8 @@ scores_kernel(const T* __restrict__ bm, const T* __restrict__ cm, float* __restr
     for (int i = threadIdx.x; i < kT * kT; i += kThreads) {
       const int r = i / kT, c = i % kT, n = n0 + c;
       const int qr = tq * kT + r, tr = tt * kT + r;
-      cs[r][c] = (qr < Q && n < N) ? to_f(cm[base + static_cast<size_t>(qr) * N + n]) : 0.f;
-      bs[r][c] = (tr < Q && n < N) ? to_f(bm[base + static_cast<size_t>(tr) * N + n]) : 0.f;
+      cs[r][c] = (qr < Q && n < N) ? cm[base + static_cast<size_t>(qr) * N + n] : 0.f;
+      bs[r][c] = (tr < Q && n < N) ? bm[base + static_cast<size_t>(tr) * N + n] : 0.f;
     }
     __syncthreads();
 #pragma unroll 8
@@ -135,9 +138,8 @@ y_kernel(const float* __restrict__ x, const float* __restrict__ da,
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-states_kernel(const float* __restrict__ x, const float* __restrict__ da, const T* __restrict__ bm,
+states_kernel(const float* __restrict__ x, const float* __restrict__ da, const float* __restrict__ bm,
               float* __restrict__ st, int Q, int H, int P, int N) {
   const int h = blockIdx.y, bc = blockIdx.z;
   extern __shared__ float smem[];
@@ -146,7 +148,7 @@ states_kernel(const float* __restrict__ x, const float* __restrict__ da, const T
   const size_t xrow = static_cast<size_t>(H) * P;
   const float* xb = x + static_cast<size_t>(bc) * Q * xrow + static_cast<size_t>(h) * P;
   const float* dab = da + static_cast<size_t>(bc) * Q * H + h;
-  const T* bb = bm + static_cast<size_t>(bc) * Q * N;
+  const float* bb = bm + static_cast<size_t>(bc) * Q * N;
   const float a_last = dab[static_cast<size_t>(Q - 1) * H];
   const int out0 = blockIdx.x * kThreads * kStOut;
   float acc[kStOut];
@@ -163,7 +165,7 @@ states_kernel(const float* __restrict__ x, const float* __restrict__ da, const T
     }
     for (int i = threadIdx.x; i < kT * N; i += kThreads) {
       const int c = i / N, n = i % N, t = t0 + c;
-      bs[i] = t < Q ? to_f(bb[static_cast<size_t>(t) * N + n]) : 0.f;
+      bs[i] = t < Q ? bb[static_cast<size_t>(t) * N + n] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -190,11 +192,10 @@ int set_smem(const void* fn, size_t bytes) {
                                                static_cast<int>(bytes)));
 }
 
-template <typename T>
-int launch(const float* x, const float* da, const T* bm, const T* cm, float* y, float* st,
+int launch(const float* x, const float* da, const float* bm, const float* cm, float* y, float* st,
            float* scores, int BC, int Q, int H, int P, int N, cudaStream_t stream) {
   const int nt = (Q + kT - 1) / kT;
-  scores_kernel<T><<<dim3(nt, nt, BC), kThreads, 0, stream>>>(bm, cm, scores, Q, N);
+  scores_kernel<<<dim3(nt, nt, BC), kThreads, 0, stream>>>(bm, cm, scores, Q, N);
   int e = static_cast<int>(cudaGetLastError());
   if (e) return e;
 
@@ -204,30 +205,21 @@ int launch(const float* x, const float* da, const T* bm, const T* cm, float* y, 
   if ((e = static_cast<int>(cudaGetLastError()))) return e;
 
   const size_t st_smem = sizeof(float) * kT * (P + N);
-  if ((e = set_smem(reinterpret_cast<const void*>(states_kernel<T>), st_smem))) return e;
+  if ((e = set_smem(reinterpret_cast<const void*>(states_kernel), st_smem))) return e;
   const int ntiles = (P * N + kThreads * kStOut - 1) / (kThreads * kStOut);
-  states_kernel<T><<<dim3(ntiles, H, BC), kThreads, st_smem, stream>>>(x, da, bm, st, Q, H, P, N);
+  states_kernel<<<dim3(ntiles, H, BC), kThreads, st_smem, stream>>>(x, da, bm, st, Q, H, P, N);
   return static_cast<int>(cudaGetLastError());
 }
 }  // namespace
 
-// x (BC, Q, H, P) f32, da_cs (BC, Q, H) f32, b / c (BC, Q, N) f32 (bf16 == 0)
-// or bfloat16 (bf16 == 1), y (BC, Q, H, P) f32, st (BC, H, P, N) f32,
+// The float32 entry (bf16 must be 0): x (BC, Q, H, P) f32, da_cs (BC, Q, H)
+// f32, b / c (BC, Q, N) f32, y (BC, Q, H, P) f32, st (BC, H, P, N) f32,
 // scores (BC, Q, Q) f32 scratch; BC = batch * chunks; P <= 128.
 extern "C" int ssd_intra_chunk_launch(const void* x, const void* da, const void* b, const void* c,
                                       void* y, void* st, void* scores, int BC, int Q, int H,
                                       int P, int N, int bf16, void* stream) {
-  if (P > 8 * kMaxPPerThread) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  const float* daf = static_cast<const float*>(da);
-  float* yf = static_cast<float*>(y);
-  float* sf = static_cast<float*>(st);
-  float* sc = static_cast<float*>(scores);
-  if (bf16) {
-    return launch(xf, daf, static_cast<const __nv_bfloat16*>(b), static_cast<const __nv_bfloat16*>(c),
-                  yf, sf, sc, BC, Q, H, P, N, s);
-  }
-  return launch(xf, daf, static_cast<const float*>(b), static_cast<const float*>(c), yf, sf, sc,
-                BC, Q, H, P, N, s);
+  if (bf16 || P > 8 * kMaxPPerThread) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(static_cast<const float*>(x), static_cast<const float*>(da), static_cast<const float*>(b),
+                static_cast<const float*>(c), static_cast<float*>(y), static_cast<float*>(st),
+                static_cast<float*>(scores), BC, Q, H, P, N, static_cast<cudaStream_t>(stream));
 }

@@ -6,7 +6,8 @@
   flash_attention — causal / windowed GQA attention, the dense prefill with
                     ``cfg.use_pallas`` (csrc/flash_attention.cu)
   ssd_intra_chunk — the Mamba-2 intra-chunk block, the SSM prefill with
-                    ``cfg.use_pallas`` (csrc/ssd_intra_chunk.cu)
+                    ``cfg.use_pallas`` (csrc/ssd_intra_chunk_sm90.cu for
+                    bf16 B / C, csrc/ssd_intra_chunk.cu for f32)
 
 Each wrapper runs its plain PyTorch version on CPU tensors and launches
 its kernel on CUDA tensors, counting launches in ``<wrapper>.launches``.

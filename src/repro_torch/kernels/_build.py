@@ -36,7 +36,7 @@ NVCC_FLAGS = (
 )
 SOURCES = (
     "theta_sums", "round_update", "whole_round", "flash_attention", "flash_attention_sm90",
-    "ssd_intra_chunk",
+    "ssd_intra_chunk", "ssd_intra_chunk_sm90",
 )
 
 _lock = threading.Lock()

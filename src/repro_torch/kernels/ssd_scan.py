@@ -6,13 +6,17 @@ Per (batch, chunk) and head:
     state = sum_t B_t exp(a_last - a_t) x_t
 
 Replaces ``src/repro/kernels/ssd_scan.py::ssd_intra_chunk``, which
-``cfg.use_pallas`` switches into the SSM prefill. The TPU kernel builds a
-chunk's (Q, Q, H) decay tensor in VMEM; the CUDA kernel
-(``csrc/ssd_intra_chunk.cu``) computes C.B^T once per chunk into a
-scratch buffer, turns the causal mask into loop bounds and computes each
-decay where it is used. Bound: operations (see the source). Its plain
-version is ``kernels/ref.py::ssd_chunk_ref`` batched over chunks, with
-B / C upcast to f32 before their product, as the TPU kernel does.
+``cfg.use_pallas`` switches into the SSM prefill. Two kernels behind one
+C entry, picked by the dtype of B / C. bfloat16 (the served dtype) runs
+on the tensor cores (``csrc/ssd_intra_chunk_sm90.cu``: wgmma, x and the
+decay weights as TF32 hi / lo pairs; C.B^T and B^T once per chunk into a
+scratch buffer as shared-memory images, then one warpgroup per pair of
+query tiles or state slice, head and chunk). Float32 stays in exact
+float32 on the CUDA cores (``csrc/ssd_intra_chunk.cu``), summed in the
+order of torch's float32 einsums, which the float32 serving gate needs.
+Bound: bytes on the tensor cores (see the sources). Its plain version is
+``kernels/ref.py::ssd_chunk_ref`` batched over chunks, with B / C upcast
+to f32 before their product, as the TPU kernel does.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._launch import I, P, arg, on_cpu, stream
 
 MAX_HEAD_DIM = 128  # P the CUDA kernel takes
+TILE = 64  # the bf16 kernel's query / time tile
+SLICE = 128  # the bf16 kernel's state columns (n) per CTA
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -64,12 +70,18 @@ def ssd_intra_chunk(x, da_cs, b_in, c_in):
     dev = x.device
     y = torch.empty((B, nc, Q, H, Pd), dtype=torch.float32, device=dev)
     st = torch.empty((B, nc, H, Pd, N), dtype=torch.float32, device=dev)
-    scores = torch.empty((B * nc, Q, Q), dtype=torch.float32, device=dev)
-    fn = _build.load("ssd_intra_chunk").ssd_intra_chunk_launch
+    bf16 = b_in.dtype == torch.bfloat16
+    if bf16:  # per chunk: the S tiles on or below the diagonal, then B^T per t-tile
+        tiles, slices = -(-Q // TILE), -(-N // SLICE)
+        per_chunk = tiles * (tiles + 1) // 2 * TILE * TILE + tiles * slices * SLICE * TILE
+    else:  # per chunk: C.B^T
+        per_chunk = Q * Q
+    scores = torch.empty((B * nc, per_chunk), dtype=torch.float32, device=dev)
+    fn = _build.load("ssd_intra_chunk_sm90" if bf16 else "ssd_intra_chunk").ssd_intra_chunk_launch
     fn.argtypes = [P] * 7 + [I] * 6 + [P]
     fn.restype = I
     status = fn(*ptrs, y.data_ptr(), st.data_ptr(), scores.data_ptr(), B * nc, Q, H, Pd, N,
-                int(b_in.dtype == torch.bfloat16), stream())
+                int(bf16), stream())
     _build.check(status, "ssd_intra_chunk")
     ssd_intra_chunk.launches += 1
     return y, st

@@ -145,8 +145,17 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, B, S, H, KV, D, window)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,nc,Q,H,P,N", [(2, 2, 64, 2, 16, 8), (1, 3, 20, 2, 16, 8),
-                                          (2, 2, 256, 8, 64, 128)])
+@pytest.mark.parametrize("B,nc,Q,H,P,N", [
+    (2, 2, 64, 2, 16, 8), (1, 3, 20, 2, 16, 8), (2, 2, 256, 8, 64, 128),
+    # against the kernel's tiles: Q 192 (three 64-row query tiles: a pair
+    # and a middle tile alone), P 128 (two 64-row halves of p, MAX_HEAD_DIM),
+    # N 8 and N 24 (below and ragged against the 8-step and the 128-column
+    # state slice), odd P (4-byte copies), Q 300 with N 200 (two slices),
+    # and mamba2-1.3b's head count at one chunk
+    (1, 2, 192, 4, 64, 32), (1, 1, 256, 4, 128, 128), (1, 1, 128, 2, 64, 8),
+    (1, 2, 100, 3, 40, 24), (1, 1, 64, 2, 7, 5), (1, 1, 300, 2, 128, 200),
+    (1, 1, 256, 64, 64, 128),
+])
 def test_cuda_ssd_intra_chunk_matches_plain(cuda, dtype, B, nc, Q, H, P, N):
     rng = np.random.default_rng(Q + H)
     f = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32, device=cuda)  # noqa: E731

@@ -106,9 +106,18 @@ def _ssd_inputs(seed, B, L, H, P, N):
     return x, dt, a, b_in, c_in
 
 
-@pytest.mark.parametrize("L,H,P,N,chunk", [(128, 2, 16, 8, 64), (256, 4, 32, 16, 128)])
-def test_ssd_matches_reference(L, H, P, N, chunk):
+@pytest.mark.parametrize("L,H,P,N,chunk,bf16", [
+    pytest.param(128, 2, 16, 8, 64, False, id="128-2-16-8-64"),
+    pytest.param(256, 4, 32, 16, 128, False, id="256-4-32-16-128"),
+    # the served dtype: B / C rounded to bf16 for both packages (the plain
+    # version is the CUDA kernel's oracle on the card in that dtype too)
+    pytest.param(128, 2, 16, 8, 64, True, id="128-2-16-8-64-bf16"),
+    pytest.param(256, 4, 32, 16, 128, True, id="256-4-32-16-128-bf16"),
+])
+def test_ssd_matches_reference(L, H, P, N, chunk, bf16):
     x, dt, a, b_in, c_in = _ssd_inputs(L * H, 2, L, H, P, N)
+    if bf16:
+        b_in, c_in = b_in.astype(ml_dtypes.bfloat16), c_in.astype(ml_dtypes.bfloat16)
     # the kernel's own inputs, as ssd_pallas prepares them
     B, nc = 2, L // chunk
     da_cs = np.cumsum((dt * a).reshape(B, nc, chunk, H), axis=2)
