@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA H100.
 
-    python3 chip_smoke.py               # the main path at 6500 of the paper's 9000 steps
-    python3 chip_smoke.py --steps 9000  # the paper's full length
-    python3 chip_smoke.py --steps N     # any other length (a cut is printed)
+    python3 chip_smoke.py               # main path 6100, sweep 2100 of the paper's 9000 steps
+    python3 chip_smoke.py --steps 9000 --sweep-steps 9000  # the paper's full length
+    python3 chip_smoke.py --steps 300 --sweep-steps 300    # a quick pass through every phase
 
-The default cuts the DecAFork ensembles' depth so that the whole run,
-serving included, stays near half of a 20-minute budget: their round
-loop is host-bound (its time per round does not shrink with fewer
-seeds), and 6500 steps still fire both bursts (steps 2000 and 6000).
+The defaults cut the depth of the ensembles, the sweep, the profiler
+window and the 200-round checks of phases 4 and 5 so that the whole run
+stays within 65 % of a 20-minute budget (780 s): the round loops are
+host-bound (time per round does not shrink with fewer seeds), and the
+host's speed varies by 10-20 % from call to call. 6100 steps still fire
+both bursts (steps 2000 and 6000), the sweep's 2100 the first.
 
 Phases, each printed on its own line:
 
@@ -37,17 +39,21 @@ Phases, each printed on its own line:
    inputs (``library_ms`` eager, ``library_device_ms`` graph);
 3. main path: the paper's DecAFork and DecAFork+ ensembles (regular
    graph n = 100, d = 8; Z0 = 10, W = 64, B = 1024, 50 seeds, bursts of
-   5 and 6 walks at steps 2000 and 6000, decisions from step 1000; 6500
+   5 and 6 walks at steps 2000 and 6000, decisions from step 1000; 6100
    steps unless ``--steps`` says otherwise)
    through ``repro_torch.api.Experiment`` on ``cuda``; the whole_round
    launch count must equal the rounds run, and Z_t must survive near Z0;
-   then a 40-round torch.profiler window of the same configuration gives
+   then a 10-round torch.profiler window of the same configuration gives
    the device's busy share and its kernels per round;
-4. cross-device parity: 200 rounds, 4 seeds, churny failures, on cuda and
+4. cross-device parity: 160 rounds, 4 seeds, churny failures, on cuda and
    on the CPU; integer outputs bitwise, theta_mean within 1e-6;
-5. unfused paths: ``round_impl="unfused"`` with ``estimator_impl`` =
-   ``"fused"`` (round_update) and ``"pallas"`` (theta_sums); their
-   integer outputs must equal the fused round's;
+5. unfused paths, 160 rounds: ``round_impl="unfused"`` with
+   ``estimator_impl`` = ``"fused"`` (round_update) and ``"pallas"``
+   (theta_sums); their integer outputs must equal the fused round's.
+   Then DecAFork+ with
+   ``auto_eps`` through theta_sums (one launch per round) and with the
+   analytic survival (no kernel), 200 steps, 4 seeds, cuda against the
+   CPU: integers bitwise, theta_mean within 1e-6;
 6. serve: ``repro_torch.launch.serve.generate`` on cuda for yi-6b
    (batch 4, prompt 512, 32 new tokens), mamba2-1.3b (the same) and
    paper-rwsgd (batch 4, prompt 128, 16 new tokens), at their published
@@ -61,7 +67,21 @@ Phases, each printed on its own line:
    top-2 logit gap exceeds that bound; the served dtype's gap is
    recorded, and for the SSM model the float32 gap with the intra-chunk
    block computed in float64 (how far an exact block lands from the
-   plain path's float32 rounding).
+   plain path's float32 rounding);
+7. sweep: Fig. 1's three curves (MissingPerson eps_mp 400, DecAFork eps
+   2.0, DecAFork+) and Fig. 5's DecAFork eps grid (1.8, 2.0, 2.25, 2.5)
+   as one ``Experiment(scenarios=...).sweep(seeds=50)`` on cuda, in the
+   main path's configuration (2100 steps unless ``--sweep-steps`` says
+   otherwise): three groups (DecAFork 200 rows, DecAFork+ 50,
+   MissingPerson 50), each timed (ms per round, trajectory-rounds/s and
+   the ratio to phase 3's DecAFork ensemble). The two DecAFork groups
+   must launch whole_round once per round and decide fused, MissingPerson
+   not at all (unfused, with the reference's reason); every DecAFork /
+   DecAFork+ scenario must survive near Z0. Then parity at full width for
+   200 steps with decisions from step 50: each scenario of a cuda sweep
+   equals its own cuda ensemble bitwise, and a 4-seed mixed sweep (the
+   three algorithms and ``none``, churny failures) on cuda equals the
+   same sweep on the CPU (integers bitwise, theta_mean within 1e-6).
 
 Before the last line it prints the card's name and power limit, then one
 JSON object with every kernel's launches, error and times; the last line
@@ -101,8 +121,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 PAPER = dict(n=100, degree=8, z0=10, max_walks=64, rt_bins=1024, protocol_start=1000,
              bursts=(2000, 6000), burst_sizes=(5, 6), steps=9000, seeds=50)
-MAIN_STEPS = 6500  # the default main-path length (see the module docstring)
+MAIN_STEPS = 6100  # the default main-path length (see the module docstring)
+SWEEP_STEPS = 2100  # the default sweep length: the burst at step 2000 fires
 ALGS = {"decafork": dict(eps=2.0), "decafork+": dict(eps=3.0, eps2=7.57)}
+EPS_MP = 400.0  # MissingPerson's timeout in benchmarks/common.py
+EPS_GRID = (1.8, 2.0, 2.25, 2.5)  # Fig. 5's DecAFork grid (2.0 is Fig. 1's curve)
 CHURN = dict(burst_times=(60, 140), burst_sizes=(5, 6), p_fail=0.002,
              byzantine_node=2, p_byz=0.05, byz_start_time=30,
              p_node_fail=0.01, p_node_recover=0.3, node_fail_start=20,
@@ -707,7 +730,7 @@ def main_path(graph, steps, seeds, kernel_ms):
     return res
 
 
-def profile_rounds(graph, seeds, rounds=40):
+def profile_rounds(graph, seeds, rounds=10):
     """Device busy share over ``rounds`` rounds of the main path, from
     torch.profiler's CUDA kernel times: all kernels, and whole_round
     alone, over the profiled wall time (the profiler's own overhead
@@ -759,7 +782,7 @@ def int_outputs_equal(a, b, label):
 def cross_device(graph):
     import numpy as np
 
-    steps, seeds = 200, 4
+    steps, seeds = 160, 4  # every CHURN event (the last at step 140) has fired
     res = {}
     for alg in ALGS:
         outs = [
@@ -783,7 +806,7 @@ def unfused_paths(graph, counts):
 
     from repro_torch.kernels import round_update, theta_sums
 
-    steps, seeds = 200, PAPER["seeds"]
+    steps, seeds = 160, PAPER["seeds"]  # both bursts (100, 150) fire
     fail = dict(burst_times=(100, 150), burst_sizes=PAPER["burst_sizes"])
     res = {}
     for alg in ALGS:
@@ -809,10 +832,216 @@ def unfused_paths(graph, counts):
     return res
 
 
+def estimator_modes(graph, counts):
+    """Phase 5's other estimator modes, on cuda against the CPU: auto_eps
+    through the theta_sums kernel (one launch per round) and the analytic
+    survival of footnote 5 (unfused, no kernel); integer outputs bitwise,
+    theta_mean within 1e-6."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import KERNELS, theta_sums
+
+    steps, seeds = 200, 4
+    fail = dict(burst_times=(150,), burst_sizes=PAPER["burst_sizes"][:1])
+    res = {}
+    for label, kw, kern in (
+        ("auto_eps", dict(auto_eps=True, estimator_impl="pallas", auto_min_samples=5), theta_sums),
+        ("analytic_survival", dict(analytic_survival=True), None),
+    ):
+        outs, walls = {}, {}
+        for dev in ("cuda", "cpu"):
+            exp = experiment(graph, "decafork+", steps, dev, protocol_start=100, failures=fail,
+                             **kw)
+            (_, _, decision), = exp.plan().round_decisions()
+            if decision.fused:
+                raise AssertionError(f"{label} took the fused round")
+            for k in KERNELS:
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[dev] = exp.ensemble(seeds)
+            torch.cuda.synchronize()
+            walls[dev] = time.perf_counter() - t0
+            if dev == "cuda":
+                launched = {k.__name__: k.launches for k in KERNELS if k.launches}
+        want = {kern.__name__: steps} if kern is not None else {}
+        if launched != want:
+            raise AssertionError(f"{label}: kernel launches {launched}, expected {want}")
+        for name, n in launched.items():
+            counts[name] += n
+        int_outputs_equal(outs["cuda"], outs["cpu"], f"{label} cuda vs cpu")
+        theta = outs["cuda"].theta_mean.cpu().numpy()
+        err = float(np.abs(theta - outs["cpu"].theta_mean.numpy()).max())
+        np.testing.assert_allclose(theta, outs["cpu"].theta_mean.numpy(), rtol=1e-6, atol=1e-6)
+        res[label] = dict(steps=steps, seeds=seeds, launches=launched,
+                          ms_per_round=walls["cuda"] * 1e3 / steps, theta_mean_max_abs_err=err,
+                          forks=int(outs["cpu"].forks.sum()), terms=int(outs["cpu"].terms.sum()))
+        log("unfused", mode=label, alg="decafork+", steps=steps, seeds=seeds, launches=launched,
+            ms_per_round=f"{walls['cuda'] * 1e3 / steps:.4f}", integers="bitwise cuda vs cpu",
+            theta_mean_max_abs_err=err, forks=res[label]["forks"], terms=res[label]["terms"])
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the paper's figure sweeps
+# ---------------------------------------------------------------------------
+
+
+def figure_scenarios(protocol_start, failures, eps_mp):
+    """Fig. 5's DecAFork eps grid (2.0 is Fig. 1's DecAFork curve), then
+    Fig. 1's DecAFork+ and MissingPerson curves: three groups."""
+    from repro_torch.core import FailureConfig, ProtocolConfig
+    from repro_torch.sweep import Scenario
+
+    fail = FailureConfig(**failures)
+    common = dict(z0=PAPER["z0"], max_walks=PAPER["max_walks"], rt_bins=PAPER["rt_bins"],
+                  protocol_start=protocol_start, estimator_impl="auto", round_impl="auto")
+    scen = [Scenario(f"decafork eps={e}", ProtocolConfig(algorithm="decafork", eps=e, **common),
+                     fail) for e in EPS_GRID]
+    scen.append(Scenario("decafork+", ProtocolConfig(algorithm="decafork+", **ALGS["decafork+"],
+                                                     **common), fail))
+    scen.append(Scenario("missingperson", ProtocolConfig(algorithm="missingperson", eps_mp=eps_mp,
+                                                         **common), fail))
+    return scen
+
+
+def sweep_phase(graph, steps, seeds, phase3):
+    """Phase 7: Figs. 1 and 5 as one sweep on cuda, timed per group; each
+    group is one round loop over its scenarios x seeds rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Experiment
+    from repro_torch.core import simulator as sim
+    from repro_torch.kernels import KERNELS, whole_round
+
+    fail = dict(burst_times=PAPER["bursts"], burst_sizes=PAPER["burst_sizes"])
+    scen = figure_scenarios(PAPER["protocol_start"], fail, EPS_MP)
+    plan = Experiment(graph=graph, scenarios=scen, steps=steps, device="cuda").plan()
+    decisions = []
+    for _sig, idxs, d in plan.round_decisions():
+        alg = scen[idxs[0]].pcfg.algorithm
+        mp = alg == "missingperson"
+        if d.fused == mp or (mp and d.reason != "algorithm 'missingperson' has no fused round"):
+            raise AssertionError(f"group {idxs} ({alg}): {d}")
+        decisions.append(dict(scenarios=[scen[i].name for i in idxs], impl=d.impl, reason=d.reason))
+    groups = []
+    stacked = plan.sweep_stacked
+
+    def timed(scenarios, **kw):  # each group's wall time and launches
+        torch.cuda.synchronize()
+        before = whole_round.launches
+        t0 = time.perf_counter()
+        out = stacked(scenarios, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows = len(scenarios) * seeds
+        groups.append(dict(scenarios=[s.name for s in scenarios],
+                           algorithm=scenarios[0].pcfg.algorithm, rows=rows, steps=steps, wall_s=wall, ms_per_round=wall * 1e3 / steps,
+                           trajectory_rounds_per_s=rows * steps / wall,
+                           whole_round_launches=whole_round.launches - before))
+        return out
+
+    plan.sweep_stacked = timed
+    for k in KERNELS:  # this path's counts start here
+        k.launches = 0
+    res = plan.sweep(seeds=seeds)
+    counts = {k.__name__: k.launches for k in KERNELS}
+    base = phase3["decafork"]["trajectory_rounds_per_s"]
+    for g in groups:
+        want = 0 if g["algorithm"] == "missingperson" else steps
+        if g["whole_round_launches"] != want:
+            raise AssertionError(f"group {g['scenarios']}: whole_round launched "
+                                 f"{g['whole_round_launches']} times, expected {want}")
+        g["vs_phase3_decafork"] = g["trajectory_rounds_per_s"] / base
+        log("sweep", group=repr(",".join(g["scenarios"])), rows=g["rows"], steps=steps,
+            wall_s=f"{g['wall_s']:.3f}", ms_per_round=f"{g['ms_per_round']:.4f}",
+            trajectory_rounds_per_s=f"{g['trajectory_rounds_per_s']:.1f}",
+            vs_phase3_decafork=f"{g['vs_phase3_decafork']:.3f}",
+            whole_round_launches=g["whole_round_launches"])
+    start = min(PAPER["protocol_start"], steps - 1)
+    burst = PAPER["bursts"][0]
+    per = {}
+    for s in scen:
+        out = res[s.name]
+        z = out.z.cpu().numpy()
+        if z.shape != (seeds, steps):
+            raise AssertionError(f"{s.name}: z has shape {z.shape}")
+        if not np.isfinite(out.theta_mean.cpu().numpy()).all():
+            raise AssertionError(f"{s.name}: non-finite theta_mean")
+        alive = float((z > 0).all(axis=1).mean())
+        mean_z = float(z[:, start:].mean())
+        react = ([sim.reaction_time(zs, PAPER["z0"], burst) for zs in z]
+                 if steps > burst else [])
+        done = [r for r in react if r >= 0]
+        per[s.name] = dict(survival=alive, mean_z_after_start=mean_z, max_z=int(z.max()),
+                           reaction_after_burst_mean=float(np.mean(done)) if done else None,
+                           reaction_never=len(react) - len(done),
+                           forks=int(out.forks.sum()), terms=int(out.terms.sum()))
+        log("sweep", scenario=repr(s.name), survival=alive, mean_z=f"{mean_z:.3f}",
+            max_z=int(z.max()), reaction_after_burst=per[s.name]["reaction_after_burst_mean"],
+            never_recovered=per[s.name]["reaction_never"], forks=per[s.name]["forks"],
+            terms=per[s.name]["terms"])
+        if s.pcfg.algorithm != "missingperson" and (
+                alive < 1.0 or not PAPER["z0"] / 2 <= mean_z <= 2 * PAPER["z0"]):
+            raise AssertionError(f"{s.name}: survival {alive}, mean Z after start {mean_z}")
+    return dict(steps=steps, seeds=seeds, decisions=decisions, groups=groups,
+                scenarios=per), counts
+
+
+def sweep_parity(graph):
+    """At full width for 200 steps, with decisions from step 50 and the
+    rules firing: each scenario of a cuda sweep equals its own cuda
+    ensemble (integers bitwise), and a 4-seed mixed sweep (the three
+    algorithms and ``none``) on cuda equals the same sweep on the CPU."""
+    import numpy as np
+
+    from repro_torch.api import Experiment
+    from repro_torch.core import FailureConfig, ProtocolConfig
+    from repro_torch.sweep import Scenario
+
+    steps = 200
+    fail = dict(burst_times=(100, 150), burst_sizes=PAPER["burst_sizes"])
+    scen = figure_scenarios(50, fail, eps_mp=100.0)
+    sweep = Experiment(graph=graph, scenarios=scen, steps=steps, outputs="full",
+                       device="cuda").sweep(seeds=PAPER["seeds"])
+    for s in scen:
+        ens = Experiment(graph=graph, protocol=s.pcfg, failures=s.fcfg, steps=steps,
+                         outputs="full", device="cuda").ensemble(PAPER["seeds"])
+        int_outputs_equal(sweep[s.name], ens, f"sweep vs ensemble {s.name}")
+    forks = {s.name: int(sweep[s.name].forks.sum()) for s in scen}
+    if min(forks.values()) == 0:
+        raise AssertionError(f"a rule never fired in the parity sweep: {forks}")
+    log("parity", sweep="cuda sweep vs cuda ensembles", scenarios=len(scen), steps=steps,
+        seeds=PAPER["seeds"], integers="bitwise")
+
+    mixed = scen[1:2] + scen[4:]  # decafork eps=2.0, decafork+, missingperson
+    p0 = mixed[0].pcfg
+    mixed.append(Scenario("none", ProtocolConfig(
+        algorithm="none", z0=p0.z0, max_walks=p0.max_walks, rt_bins=p0.rt_bins,
+        protocol_start=50, estimator_impl="auto"), FailureConfig(**CHURN)))
+    mixed = [s._replace(fcfg=FailureConfig(**CHURN)) for s in mixed]
+    runs = {dev: Experiment(graph=graph, scenarios=mixed, steps=steps, outputs="full",
+                            device=dev).sweep(seeds=4) for dev in ("cuda", "cpu")}
+    err = 0.0
+    for s in mixed:
+        got, want = runs["cuda"][s.name], runs["cpu"][s.name]
+        int_outputs_equal(got, want, f"mixed sweep cuda vs cpu {s.name}")
+        theta = got.theta_mean.cpu().numpy()
+        np.testing.assert_allclose(theta, want.theta_mean.numpy(), rtol=1e-6, atol=1e-6)
+        err = max(err, float(np.abs(theta - want.theta_mean.numpy()).max()))
+    log("parity", sweep="mixed, cuda vs cpu", scenarios=len(mixed), steps=steps, seeds=4,
+        integers="bitwise", theta_mean_max_abs_err=err)
+    return dict(steps=steps, seeds=PAPER["seeds"], forks=forks, mixed_theta_mean_max_abs_err=err)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=MAIN_STEPS,
                     help=f"main-path rounds (default {MAIN_STEPS}; the paper runs 9000)")
+    ap.add_argument("--sweep-steps", type=int, default=SWEEP_STEPS,
+                    help=f"phase 7's rounds (default {SWEEP_STEPS}; the paper runs 9000)")
     args = ap.parse_args()
 
     try:
@@ -832,6 +1061,13 @@ def main() -> int:
         print(f"chip_smoke: the repository's src/repro_torch is missing ({exc})", file=sys.stderr)
         return 1
 
+    phase_s, t_phase = {}, [time.perf_counter()]
+
+    def lap(phase):  # seconds of each phase, host clock
+        now = time.perf_counter()
+        phase_s[phase] = now - t_phase[0]
+        t_phase[0] = now
+
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
     build = _build.build_all()  # source -> seconds; the sources compile at once
@@ -845,7 +1081,9 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     graph = make_graph("regular", PAPER["n"], seed=0, degree=PAPER["degree"])
+    lap("1 device and build")
     rows = check_kernels(rng, graph, "cuda") + check_model_kernels(rng, "cuda")
+    lap("2 kernels")
     by_name = {r["name"]: r for r in rows}
 
     if args.steps < PAPER["steps"]:
@@ -857,11 +1095,29 @@ def main() -> int:
     main_res = main_path(graph, args.steps, PAPER["seeds"], by_name["whole_round"]["ms"])
     counts = {k.__name__: k.launches for k in KERNELS}
     log("main", launches=counts)
+    lap("3 main path")
     profile = profile_rounds(graph, PAPER["seeds"])
+    lap("3 profile")
     parity = cross_device(graph)
+    lap("4 cross-device parity")
     unfused = unfused_paths(graph, counts)
+    lap("5 unfused paths")
+    unfused.update(estimator_modes(graph, counts))
+    lap("5 estimator modes")
     serve, serve_counts = serve_models("cuda")
+    lap("6 serve")
     counts.update(serve_counts)
+    if args.sweep_steps < PAPER["steps"]:
+        fired = [b for b in PAPER["bursts"] if b < args.sweep_steps]
+        log("sweep", cut=f"steps {args.sweep_steps} of the paper's {PAPER['steps']}; bursts at "
+                         f"{fired} fire; n, W, B and seeds uncut")
+    sweep, sweep_counts = sweep_phase(graph, args.sweep_steps, PAPER["seeds"], main_res)
+    for k, v in sweep_counts.items():
+        counts[k] += v
+    lap("7 sweep")
+    sweep["parity"] = sweep_parity(graph)
+    lap("7 sweep parity")
+    log("time", **{k.replace(" ", "_"): f"{v:.1f}" for k, v in phase_s.items()})
 
     for r in rows:
         r["launches"] = counts.get(r["name"], 0)
@@ -872,7 +1128,8 @@ def main() -> int:
     detail = dict(nvidia_smi=smi, device=name, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
                   build_s_by_source=build, sass=sass, kernels=rows,
-                  main=main_res, profile=profile, parity=parity, unfused=unfused, serve=serve)
+                  main=main_res, profile=profile, parity=parity, unfused=unfused, serve=serve,
+                  sweep=sweep, phase_s=phase_s)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(detail, fh, indent=1)

@@ -1,11 +1,12 @@
 """The declarative Experiment spec (counterpart of the JAX package's
-``api/experiment.py``), for one base scenario:
+``api/experiment.py``):
 
     from repro_torch.api import Experiment
 
     exp = Experiment(graph=g, protocol=pcfg, failures=fcfg, steps=9000)
     final, outs = exp.run(key=0)      # one trajectory
     outs = exp.ensemble(seeds=50)     # the paper's seed ensembles
+    res = Experiment(graph=g, scenarios=[...], steps=9000).sweep(seeds=50)
 
 It runs on ``cuda`` unless ``device`` says otherwise (``device="cpu"``
 runs the kernels' plain versions); with no CUDA device and no explicit
@@ -16,11 +17,13 @@ the same bits as the reference under either.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Sequence
 
 import torch
 
+from repro_torch.api.placement import Placement
 from repro_torch.api.plan import Plan
+from repro_torch.api.results import SweepResult
 from repro_torch.core.failures import FailureConfig
 from repro_torch.core.outputs import resolve_spec
 from repro_torch.core.protocol import ProtocolConfig
@@ -31,37 +34,46 @@ __all__ = ["Experiment"]
 
 @dataclasses.dataclass(frozen=True)
 class Experiment:
-    """graph, protocol, failures (default: failure-free), steps, outputs
-    (``None`` / ``'scalars'`` / ``'full'`` / an OutputSpec / field names),
-    device, partitionable. ``scenarios`` and ``payload`` exist only to
-    raise: sweeps and payloads are not ported yet."""
+    """graph; protocol (the base scenario, needed by ``run`` /
+    ``ensemble``; optional when scenarios are given); failures (default:
+    failure-free); steps; scenarios (``Scenario`` / ``(pcfg, fcfg)``
+    rows, the default list of ``sweep``); outputs (``None`` /
+    ``'scalars'`` / ``'full'`` / an OutputSpec / field names);
+    placement (``'auto'`` / ``'local'``; ``'sharded'`` raises); device;
+    partitionable; name. ``payload`` exists only to raise: payloads are
+    not ported yet."""
 
     graph: Any
     protocol: ProtocolConfig | None = None
     failures: FailureConfig | None = None
     steps: int | None = None
+    scenarios: Sequence | None = None
+    payload: Any = None
     outputs: Any = None
+    placement: Placement | str | None = "auto"
     device: Any = None
     partitionable: bool = True
-    scenarios: Any = None
-    payload: Any = None
     name: str | None = None
 
     def __post_init__(self):
-        if self.scenarios is not None:
-            raise NotImplementedError(
-                "scenario sweeps are not ported yet (ROADMAP.md queue 1, item 5)"
-            )
         if self.payload is not None:
             raise NotImplementedError(
                 "walk payloads are not ported yet (ROADMAP.md queue 1, item 8)"
             )
         if self.steps is None:
             raise TypeError("Experiment needs steps= (trajectory length)")
-        if self.protocol is None:
-            raise TypeError("Experiment needs protocol=")
-        if self.failures is None:
+        if self.failures is not None and self.protocol is None:
+            raise TypeError("failures= given without protocol=")
+        if self.protocol is None and not self.scenarios:
+            raise TypeError(
+                "Experiment needs a base scenario (protocol=/failures=) "
+                "and/or scenarios=[...]"
+            )
+        if self.protocol is not None and self.failures is None:
             object.__setattr__(self, "failures", FailureConfig())
+        if self.scenarios is not None:
+            object.__setattr__(self, "scenarios", tuple(self.scenarios))
+        object.__setattr__(self, "placement", Placement.resolve(self.placement))
         object.__setattr__(self, "steps", int(self.steps))
         object.__setattr__(self, "device", resolve_device(self.device))
         object.__setattr__(self, "_spec", resolve_spec(self.outputs))
@@ -78,7 +90,18 @@ class Experiment:
         """A seed ensemble; see :meth:`Plan.ensemble`."""
         return self.plan().ensemble(seeds, base_key)
 
-    def sweep(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Experiment.sweep is not ported yet (ROADMAP.md queue 1, item 5)"
-        )
+    def sweep(self, scenarios: Sequence | None = None, *, seeds: int,
+              base_key: int | torch.Tensor = 0, store=None) -> SweepResult:
+        """A mixed scenario list, one batch per group; see :meth:`Plan.sweep`
+        (``store=`` raises: durable execution is not ported yet)."""
+        return self.plan().sweep(scenarios, seeds=seeds, base_key=base_key, store=store)
+
+    def __repr__(self):
+        label = f" {self.name!r}" if self.name else ""
+        parts = [f"n={getattr(self.graph, 'n', '?')}", f"steps={self.steps}"]
+        if self.protocol is not None:
+            parts.append(f"protocol={self.protocol.algorithm}")
+        if self.scenarios:
+            parts.append(f"scenarios={len(self.scenarios)}")
+        parts.append(f"device={self.device}")
+        return f"Experiment{label}({', '.join(parts)})"

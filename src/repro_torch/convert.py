@@ -38,6 +38,7 @@ STATE_FIELDS = {
     "key": (torch.int64, 1),
     "graph.node_up": (torch.bool, 1),
     "graph.edge_up": (torch.bool, 2),
+    "theta_hist": (torch.float32, 2),
 }
 
 
@@ -76,6 +77,7 @@ def state_from_arrays(arrays: Mapping[str, np.ndarray], device) -> SimState:
         byz_state=out["byz_state"],
         key=out["key"],
         graph=GraphState(node_up=out["graph.node_up"], edge_up=out["graph.edge_up"]),
+        theta_hist=out["theta_hist"],
     )
 
 

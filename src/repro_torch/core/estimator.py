@@ -141,6 +141,17 @@ def theta_hat_from_node_sums(node_sums: torch.Tensor, pos: torch.Tensor) -> torc
     return torch.gather(node_sums, 1, pos.long()) - 0.5
 
 
+def analytic_survival_eval(
+    pi: torch.Tensor,  # (n,) stationary distribution (geometric rate q_i = pi_i)
+    nodes: torch.Tensor,  # (...) node of each entry
+    r: torch.Tensor,  # (...) elapsed times
+) -> torch.Tensor:
+    """Analytic geometric survival S_i(r) = (1 - pi_i)^r (footnote 5)."""
+    q = pi[nodes.long()]
+    s = torch.exp(torch.log1p(-q) * r.float())
+    return torch.where(r <= 0, torch.ones_like(s), s)
+
+
 def theta_hat_rows(
     last_seen: torch.Tensor,  # (batch, n, C)
     hist: torch.Tensor,  # (batch, n, B)
@@ -149,26 +160,31 @@ def theta_hat_rows(
     pos: torch.Tensor,  # (batch, W)
     track: torch.Tensor,  # (batch, W)
     *,
+    pi: torch.Tensor | None = None,
     max_elapsed: int | None = None,
 ) -> torch.Tensor:
     """Row-restricted Eq. (1) (the gather family): cumsum + survival
-    lookup on the visited rows only. ``max_elapsed`` trims the cumsum to
+    lookup on the visited rows only, or the analytic survival of ``pi``
+    (footnote 5) when it is given. ``max_elapsed`` trims the cumsum to
     the bins a run can reach (bitwise-neutral, as in the reference)."""
     C = last_seen.shape[2]
     ls = gather_rows(last_seen, pos)  # (batch, W, C)
     elapsed = t.view(-1, 1, 1) - ls
-    bins = hist.shape[2]
-    if max_elapsed is not None:
-        bins = min(bins, max(int(max_elapsed), 1))
-    rows = gather_rows(hist, pos)[..., :bins].float()
-    csum = torch.cumsum(rows, dim=2)
-    cum = torch.cat([torch.zeros_like(csum[..., :1]), csum], dim=2)
-    r_cl = torch.clamp(elapsed, 0, bins).long()
-    tot = torch.gather(total, 1, pos.long()).float()[..., None].expand_as(ls)
-    seen = torch.gather(cum, 2, r_cl)
-    s = 1.0 - seen / torch.clamp(tot, min=1.0)
-    s = torch.where(tot > 0, s, torch.ones_like(s))
-    s = torch.where(elapsed <= 0, torch.ones_like(s), s)
+    if pi is not None:
+        s = analytic_survival_eval(pi, pos[..., None].expand_as(ls), elapsed)
+    else:
+        bins = hist.shape[2]
+        if max_elapsed is not None:
+            bins = min(bins, max(int(max_elapsed), 1))
+        rows = gather_rows(hist, pos)[..., :bins].float()
+        csum = torch.cumsum(rows, dim=2)
+        cum = torch.cat([torch.zeros_like(csum[..., :1]), csum], dim=2)
+        r_cl = torch.clamp(elapsed, 0, bins).long()
+        tot = torch.gather(total, 1, pos.long()).float()[..., None].expand_as(ls)
+        seen = torch.gather(cum, 2, r_cl)
+        s = 1.0 - seen / torch.clamp(tot, min=1.0)
+        s = torch.where(tot > 0, s, torch.ones_like(s))
+        s = torch.where(elapsed <= 0, torch.ones_like(s), s)
     cols = torch.arange(C, device=ls.device)
     mask = (ls != NEVER) & (cols != track[..., None])
     return 0.5 + torch.where(mask, s, torch.zeros_like(s)).sum(dim=2)

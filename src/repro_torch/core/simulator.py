@@ -7,7 +7,9 @@ One synchronous round (t -> t+1), as in the reference:
   3. walk-level failures strike (probabilistic, burst, Byzantine,
      Pac-Man);
   4. every visited node records return-time samples and last-seen times;
-  5. the chosen walk's node computes theta-hat (Eq. 1) and decides;
+  5. the chosen walk's node computes theta-hat (Eq. 1) and decides
+     (DecAFork fork, DecAFork+ fork or terminate, MissingPerson timeout
+     replacement; ``"none"`` decides nothing);
   6. forks and terminations execute through the slot machinery.
 
 The state carries a leading batch axis (one row per trajectory); the
@@ -18,11 +20,13 @@ cannot change a drawn bit. Two round implementations exist:
   - ``protocol_step_unfused``: the literal stage sequence, the oracle
     (``round_impl="unfused"``); its estimator is ``gather``, ``compare``,
     ``pallas`` (the theta_sums kernel) or ``fused`` (the round_update
-    kernel);
-  - ``protocol_step_fused``: the whole round in the whole_round kernel,
-    with every uniform drawn outside from the same streams, the
-    Byzantine chain advanced outside and the start gates folded into the
-    rates (the reference's Pallas branch, simulator.py:653-745).
+    kernel), with the analytic survival of footnote 5 and the auto_eps
+    thresholds as options; MissingPerson and ``"none"`` run only here;
+  - ``protocol_step_fused`` (DecAFork / DecAFork+): the whole round in
+    the whole_round kernel, with every uniform drawn outside from the
+    same streams, the Byzantine chain advanced outside and the start
+    gates folded into the rates (the reference's Pallas branch,
+    simulator.py:653-745).
 
 The observation state (``last_seen``, ``hist``, ``total``) is updated in
 place round to round: a round writes W rows of an n-row table.
@@ -41,6 +45,7 @@ from repro_torch.core import protocol as prt
 from repro_torch.core import walkers as wlk
 from repro_torch.core.outputs import SCALARS, OutputSpec, StepOutputs, stack_rounds
 from repro_torch.graphs.generators import Graph
+from repro_torch.graphs.spectral import stationary_distribution
 from repro_torch.graphs.state import (
     GraphState,
     availability,
@@ -61,13 +66,16 @@ class SimState(NamedTuple):
     byz_state: torch.Tensor  # (batch,) bool
     key: torch.Tensor  # (batch, 2) threefry key words
     graph: GraphState
+    theta_hist: torch.Tensor  # (batch, n, TB) float32 auto_eps warm-up histogram
 
 
 @dataclasses.dataclass(frozen=True)
 class Setup:
     """What every round of a batch of trajectories shares: the graph on
     the device, the static protocol config and the per-trajectory rows.
-    ``steps`` (the run's budget) trims the gather estimator's bins."""
+    ``steps`` (the run's budget) trims the gather estimator's bins;
+    ``pi`` is the graph's stationary distribution when the survival is
+    analytic."""
 
     neighbors: torch.Tensor  # (n, D) int32
     degrees: torch.Tensor  # (n,) int32
@@ -77,6 +85,7 @@ class Setup:
     frows: flr.FailureRows
     steps: int
     partitionable: bool = True
+    pi: torch.Tensor | None = None  # (n,) float32
 
     @property
     def n(self) -> int:
@@ -107,6 +116,10 @@ def make_setup(graph: Graph, pcfgs, fcfgs, steps: int, device, partitionable=Tru
         frows=flr.failure_rows(fcfgs, device),
         steps=int(steps),
         partitionable=partitionable,
+        pi=(
+            torch.as_tensor(stationary_distribution(graph), dtype=torch.float32, device=device)
+            if pcfg.analytic_survival else None
+        ),
     )
 
 
@@ -120,12 +133,18 @@ def init_state(keys: torch.Tensor, setup: Setup) -> SimState:
     walks = wlk.init_walks(
         setup.prows.z0, W, n, sub[:, 0], partitionable=setup.partitionable
     )
-    last_seen = torch.full((batch, n, W), est.NEVER, dtype=torch.int32, device=keys.device)
-    # the starting node of each initial walk has seen it at t=0
-    est.scatter_max_last_seen(
-        last_seen, walks.pos, walks.track,
-        torch.where(walks.active, 0, est.NEVER).to(torch.int32),
-    )
+    if pcfg.algorithm == "missingperson":
+        # paper: L_{i,l}(0) = 0 for every initial id at every node
+        ids = torch.arange(W, device=keys.device).view(1, 1, W)
+        last_seen = torch.where(ids < setup.prows.z0.view(-1, 1, 1), 0, est.NEVER)
+        last_seen = last_seen.to(torch.int32).expand(batch, n, W).contiguous()
+    else:
+        last_seen = torch.full((batch, n, W), est.NEVER, dtype=torch.int32, device=keys.device)
+        # the starting node of each initial walk has seen it at t=0
+        est.scatter_max_last_seen(
+            last_seen, walks.pos, walks.track,
+            torch.where(walks.active, 0, est.NEVER).to(torch.int32),
+        )
     return SimState(
         t=torch.zeros((batch,), dtype=torch.int32, device=keys.device),
         walks=walks,
@@ -134,6 +153,9 @@ def init_state(keys: torch.Tensor, setup: Setup) -> SimState:
         byz_state=setup.frows.byz_start.clone(),
         key=sub[:, 1],
         graph=init_graph_state(batch, n, D, keys.device),
+        theta_hist=torch.zeros(
+            (batch, n, prt.theta_bins(pcfg)), dtype=torch.float32, device=keys.device
+        ),
     )
 
 
@@ -172,7 +194,7 @@ def round_impl_decision(
     impl = resolved_round_impl(pcfg)
     if impl != "fused":
         return unfused(f"round_impl resolved to {impl!r}")
-    if pcfg.algorithm not in prt.PORTED_ALGORITHMS:
+    if pcfg.algorithm not in prt.FUSED_ALGORITHMS:
         return unfused(f"algorithm {pcfg.algorithm!r} has no fused round")
     if pcfg.analytic_survival:
         return unfused("analytic_survival only runs the stage sequence")
@@ -205,22 +227,27 @@ def _stream_keys(state: SimState, setup: Setup) -> torch.Tensor:
     return prng.fold_in_time(state.key, state.t, tags)
 
 
-def _finish_round(state, setup, ws, last_seen, rts, byz_state, gs, theta, chosen,
-                  fork_mask, term_mask, n_failed):
-    """Forks and terminations through the slot machinery, and the
-    round's outputs (shared by both round implementations)."""
-    t = state.t
+def _decafork_tail(ws, last_seen, t, theta, chosen, fork_mask, term_mask):
+    """DecAFork / DecAFork+ forks and terminations through the slot
+    machinery (shared by both round implementations): ``(ws, last_seen,
+    n_forks, n_terms, fork_parent, theta_mean)``."""
     ws = wlk.execute_terminations(ws, term_mask)
     n_terms = term_mask.sum(dim=1, dtype=torch.int32)
     ws, last_seen, n_forks, fork_parent = wlk.execute_forks(
-        ws, last_seen, fork_mask, ws.pos, t
+        ws, last_seen, fork_mask, ws.pos, None, t
     )
     theta_mean = torch.where(chosen, theta, 0.0).sum(dim=1) / torch.clamp(
         chosen.sum(dim=1, dtype=torch.int32), min=1
     )
+    return ws, last_seen, n_forks, n_terms, fork_parent, theta_mean
+
+
+def _round_result(state, ws, last_seen, rts, byz_state, gs, theta_hist, n_failed,
+                  n_forks, n_terms, fork_parent, theta_mean, term_mask):
+    """The next state and the round's outputs."""
     new = SimState(
-        t=t + 1, walks=ws, last_seen=last_seen, rts=rts, byz_state=byz_state,
-        key=state.key, graph=gs,
+        t=state.t + 1, walks=ws, last_seen=last_seen, rts=rts, byz_state=byz_state,
+        key=state.key, graph=gs, theta_hist=theta_hist,
     )
     out = StepOutputs(
         z=ws.active.sum(dim=1, dtype=torch.int32),
@@ -232,6 +259,16 @@ def _finish_round(state, setup, ws, last_seen, rts, byz_state, gs, theta, chosen
         terminated=term_mask,
     )
     return new, out
+
+
+def _node_sum_theta(impl, last_seen, rts, t, pos):
+    if impl == "compare":
+        return est.theta_hat_from_node_sums(
+            est.node_sums_compare(last_seen, rts.hist, rts.total, t), pos
+        )
+    if impl == "pallas":
+        return est.theta_hat_from_node_sums(theta_sums(last_seen, rts.hist, rts.total, t), pos)
+    raise ValueError(f"unknown estimator_impl {impl!r}")
 
 
 def protocol_step_unfused(state: SimState, setup: Setup):
@@ -259,15 +296,18 @@ def protocol_step_unfused(state: SimState, setup: Setup):
     ws = ws._replace(active=active)
     n_failed = n_before - active.sum(dim=1, dtype=torch.int32)
 
-    # 4. observations for all visitors
+    # 4. observations for all visitors; the round_update kernel fuses
+    # them with the node sums where those are the estimate
     impl = resolved_estimator_impl(pcfg)
+    decafork = pcfg.algorithm in prt.FUSED_ALGORITHMS
+    fuse = impl == "fused" and decafork and setup.pi is None
     last_seen = state.last_seen
     prev = est.gather_rows(last_seen, ws.pos).gather(2, ws.track.long()[..., None])[..., 0]
     tc = t.view(-1, 1)
     r = tc - prev
     valid = active & (prev != est.NEVER) & (r >= 1)
     upd = torch.where(active, tc, est.NEVER).to(torch.int32)
-    if impl == "fused":
+    if fuse:
         last_seen, hist, total, node_sums = round_update(
             last_seen, state.rts.hist, state.rts.total, ws.pos, ws.track,
             r, valid, upd, t,
@@ -280,27 +320,52 @@ def protocol_step_unfused(state: SimState, setup: Setup):
     # 5. estimation and decisions for the chosen walks
     chosen = prt.choose_walks(ws.pos, active, setup.n)
     enabled = t >= prows.protocol_start
-    if impl == "fused":
-        theta = est.theta_hat_from_node_sums(node_sums, ws.pos)
-    elif impl == "gather":
-        theta = est.theta_hat_rows(
-            last_seen, rts.hist, rts.total, t, ws.pos, ws.track,
-            max_elapsed=setup.steps,
+    theta_hist = state.theta_hist
+    batch, W = ws.pos.shape
+    if decafork:
+        if fuse:
+            theta = est.theta_hat_from_node_sums(node_sums, ws.pos)
+        elif impl == "gather" or setup.pi is not None:
+            theta = est.theta_hat_rows(
+                last_seen, rts.hist, rts.total, t, ws.pos, ws.track,
+                pi=setup.pi, max_elapsed=setup.steps,
+            )
+        else:
+            theta = _node_sum_theta(impl, last_seen, rts, t, ws.pos)
+        eps = eps2 = None
+        if pcfg.auto_eps:
+            # per-node thresholds from the warm-up theta-hat histogram:
+            # each chosen walk adds an exact 1.0 to its node's bin
+            TB = theta_hist.shape[2]
+            b = torch.clamp(
+                (theta / prows.theta_bin_width.view(-1, 1)).to(torch.int32), 0, TB - 1
+            )
+            w = (chosen & ~enabled.view(-1, 1)).to(torch.float32)
+            flat = (est._flat_rows(batch, setup.n, ws.pos) * TB + b.long()).reshape(-1)
+            theta_hist.view(-1).index_put_((flat,), w.reshape(-1), accumulate=True)
+            eps, eps2 = prt.theta_quantile_thresholds(theta_hist, ws.pos, prows)
+        fork_mask, term_mask = prt.decafork_decisions(
+            theta, chosen, k_dec, prows, enabled, pcfg.algorithm == "decafork+",
+            eps, eps2, partitionable=part,
         )
-    elif impl == "compare":
-        sums = est.node_sums_compare(last_seen, rts.hist, rts.total, t)
-        theta = est.theta_hat_from_node_sums(sums, ws.pos)
-    elif impl == "pallas":
-        sums = theta_sums(last_seen, rts.hist, rts.total, t)
-        theta = est.theta_hat_from_node_sums(sums, ws.pos)
+        ws, last_seen, n_forks, n_terms, fork_parent, theta_mean = _decafork_tail(
+            ws, last_seen, t, theta, chosen, fork_mask, term_mask
+        )
     else:
-        raise ValueError(f"unknown estimator_impl {impl!r}")
-    fork_mask, term_mask = prt.decafork_decisions(
-        theta, chosen, k_dec, prows, enabled, pcfg.algorithm == "decafork+",
-        partitionable=part,
-    )
-    return _finish_round(state, setup, ws, last_seen, rts, byz_state, gs, theta,
-                         chosen, fork_mask, term_mask, n_failed)
+        zeros = torch.zeros((batch,), dtype=torch.int32, device=t.device)
+        n_terms, theta_mean = zeros, zeros.float()
+        term_mask = torch.zeros_like(active)
+        if pcfg.algorithm == "missingperson":
+            ev = prt.missingperson_decisions(
+                last_seen, ws.pos, ws.track, chosen, t, k_dec, prows, enabled,
+                partitionable=part,
+            )  # (batch, W, C): only initial-id columns (< z0) can fire
+            ws, last_seen, n_forks, fork_parent = wlk.execute_grid_forks(ws, last_seen, ev, t)
+        else:  # "none": the walks with no self-regulation
+            n_forks = zeros
+            fork_parent = torch.full_like(ws.pos, -1)
+    return _round_result(state, ws, last_seen, rts, byz_state, gs, theta_hist, n_failed,
+                         n_forks, n_terms, fork_parent, theta_mean, term_mask)
 
 
 def protocol_step_fused(state: SimState, setup: Setup):
@@ -357,9 +422,13 @@ def protocol_step_fused(state: SimState, setup: Setup):
     )
     ws = ws._replace(pos=pos, active=active)
     n_failed = n_before - active.sum(dim=1, dtype=torch.int32)
-    return _finish_round(
-        state, setup, ws, last_seen, est.ReturnTimeState(hist, total), byz_state,
-        GraphState(node_up, edge_up), theta, chosen, fork_mask, term_mask, n_failed,
+    ws, last_seen, n_forks, n_terms, fork_parent, theta_mean = _decafork_tail(
+        ws, last_seen, t, theta, chosen, fork_mask, term_mask
+    )
+    return _round_result(
+        state, ws, last_seen, est.ReturnTimeState(hist, total), byz_state,
+        GraphState(node_up, edge_up), state.theta_hist, n_failed,
+        n_forks, n_terms, fork_parent, theta_mean, term_mask,
     )
 
 

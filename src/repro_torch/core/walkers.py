@@ -1,9 +1,10 @@
 """Walk-slot state machine: movement, forking, termination (batched).
 
-Counterpart of the JAX package's ``core/walkers.py`` for DecAFork and
-DecAFork+: ``max_walks`` slots per trajectory, a slot is a walk iff
-``active``; ``track[slot]`` names the ``last_seen`` column the walk
-writes (for DecAFork each slot owns its own column, cleared on reuse).
+Counterpart of the JAX package's ``core/walkers.py``: ``max_walks``
+slots per trajectory, a slot is a walk iff ``active``; ``track[slot]``
+names the ``last_seen`` column the walk writes (for DecAFork each slot
+owns its own column, cleared on reuse; for MissingPerson it is the
+initial id the walk replaces, shared with the walk it replaces).
 The reference's ``mode="drop"`` scatters to the out-of-range index W
 become explicit masks here: every scatter goes into a buffer one column
 wider, whose last column is dropped.
@@ -103,8 +104,10 @@ def _scatter_drop(base: torch.Tensor, index: torch.Tensor, src) -> torch.Tensor:
 
 def allocate_fork_slots(active: torch.Tensor, ev_mask: torch.Tensor):
     """Pair the r-th fork event with the r-th free slot (capacity-capped,
-    overflow dropped). Returns ``(safe_slot, ev_ok, ev_slot)`` as the
-    reference does, with ``safe_slot == W`` for dropped events."""
+    overflow dropped); ``ev_mask`` is (batch, E) for any number E of
+    events, ranked in flat order. Returns ``(safe_slot, ev_ok, ev_slot)``
+    as the reference does, each (batch, E), with ``safe_slot == W`` for
+    dropped events."""
     W = active.shape[-1]
     slots = torch.arange(W, dtype=torch.int32, device=active.device)
     free = ~active
@@ -125,29 +128,59 @@ def allocate_fork_slots(active: torch.Tensor, ev_mask: torch.Tensor):
 def execute_forks(
     ws: WalkState,
     last_seen: torch.Tensor,  # (batch, n, C) int32, updated in place
-    ev_mask: torch.Tensor,  # (batch, W) bool fork events, one per parent slot
-    ev_origin: torch.Tensor,  # (batch, W) node the fork leaves from
+    ev_mask: torch.Tensor,  # (batch, E) bool fork events
+    ev_origin: torch.Tensor,  # (batch, E) node the fork leaves from
+    ev_track: torch.Tensor | None,  # (batch, E) identity, or None: the slot's own
     t: torch.Tensor,  # (batch,) int32
+    ev_parent: torch.Tensor | None = None,  # (batch, E) parent slot per event
 ):
-    """DecAFork forks: each event gets a free slot with a fresh identity
-    (the slot itself); the slot's stale column is cleared and the forking
-    node has, by construction, just seen the new walk (``last_seen`` gets
-    ``t - NEVER`` added at the origin row, walkers.py:205-212 in the JAX
-    package). Returns ``(WalkState, last_seen, n_forks, fork_parent)``."""
+    """Allocate free slots to fork events (walkers.py:176-229 in the JAX
+    package). DecAFork (``ev_track is None``): each fork gets a fresh
+    identity (the slot itself), the slot's stale column is cleared and
+    the forking node has, by construction, just seen the new walk
+    (``last_seen`` gets ``t - NEVER`` added at the origin row).
+    MissingPerson: the replacement carries the missing walk's identity
+    ``ev_track`` and ``last_seen`` is left alone. ``ev_parent`` defaults
+    to the event index. Returns ``(WalkState, last_seen, n_forks,
+    fork_parent)``; ``fork_parent[s]`` is the parent slot of a walk
+    forked into slot s this round, else -1."""
     batch, W = ws.pos.shape
     safe_slot, ev_ok, ev_slot = allocate_fork_slots(ws.active, ev_mask)
-    parents = torch.arange(W, dtype=torch.int32, device=ws.pos.device).expand(batch, W)
-    fork_parent = _scatter_drop(torch.full_like(ws.pos, -1), safe_slot, parents)
+    if ev_parent is None:
+        ev_parent = torch.arange(
+            ev_mask.shape[1], dtype=torch.int32, device=ws.pos.device
+        ).expand(batch, -1)
+    fork_parent = _scatter_drop(torch.full_like(ws.pos, -1), safe_slot, ev_parent)
     active = _scatter_drop(ws.active, safe_slot, True)
     pos = _scatter_drop(ws.pos, safe_slot, ev_origin)
-    track = _scatter_drop(ws.track, safe_slot, ev_slot)
-    fresh = _scatter_drop(torch.zeros_like(ws.active), safe_slot, True)
-    col_origin = _scatter_drop(torch.zeros_like(ws.pos), safe_slot, ev_origin)
-    last_seen.masked_fill_(fresh[:, None, :], NEVER)
-    n, C = last_seen.shape[1:]
-    bidx = torch.arange(batch, device=ws.pos.device)[:, None]
-    flat = (bidx * n + col_origin.long()) * C + torch.arange(W, device=ws.pos.device)
-    add = torch.where(fresh, (t - NEVER).view(-1, 1), 0).to(last_seen.dtype)
-    last_seen.view(-1).index_put_((flat.reshape(-1),), add.reshape(-1), accumulate=True)
+    if ev_track is None:
+        track = _scatter_drop(ws.track, safe_slot, ev_slot)
+        fresh = _scatter_drop(torch.zeros_like(ws.active), safe_slot, True)
+        col_origin = _scatter_drop(torch.zeros_like(ws.pos), safe_slot, ev_origin)
+        last_seen.masked_fill_(fresh[:, None, :], NEVER)
+        n, C = last_seen.shape[1:]
+        bidx = torch.arange(batch, device=ws.pos.device)[:, None]
+        flat = (bidx * n + col_origin.long()) * C + torch.arange(W, device=ws.pos.device)
+        add = torch.where(fresh, (t - NEVER).view(-1, 1), 0).to(last_seen.dtype)
+        last_seen.view(-1).index_put_((flat.reshape(-1),), add.reshape(-1), accumulate=True)
+    else:
+        track = _scatter_drop(ws.track, safe_slot, ev_track)
     n_forks = ev_ok.sum(dim=-1, dtype=torch.int32)
     return WalkState(pos=pos, active=active, track=track), last_seen, n_forks, fork_parent
+
+
+def execute_grid_forks(
+    ws: WalkState,
+    last_seen: torch.Tensor,  # (batch, n, C)
+    ev: torch.Tensor,  # (batch, W, C) bool event grid: (parent walk, identity)
+    t: torch.Tensor,
+):
+    """The MissingPerson fork grid: event (k, l) forks a duplicate of walk
+    k carrying identity l. The W * C events are flattened row-major, so
+    slots go to events in (parent, identity) order."""
+    batch, W, C = ev.shape
+    e = torch.arange(W * C, dtype=torch.int32, device=ev.device)
+    parent = (e // C).expand(batch, -1)
+    track = (e % C).expand(batch, -1)
+    origin = torch.gather(ws.pos, 1, parent.long())
+    return execute_forks(ws, last_seen, ev.reshape(batch, W * C), origin, track, t, parent)

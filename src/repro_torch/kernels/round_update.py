@@ -150,9 +150,9 @@ def whole_round_plain(
     )
     theta = sums - 0.5
     chosen = prt.choose_walks_pairwise(new_pos, act)
-    rows = prt.ProtocolRows(z0=None, eps=eps, eps2=eps2, p=p_fork, protocol_start=None)
     fork, term = prt.decisions_from_uniforms(
-        theta, chosen, u_fork, u_term, rows, enabled > 0, decafork_plus
+        theta, chosen, u_fork, u_term, col(eps), col(eps2), col(p_fork), col(enabled) > 0,
+        decafork_plus,
     )
     return (last_seen, hist, total, node_new, edge_new, new_pos, act, theta,
             chosen, fork, term)

@@ -123,7 +123,7 @@ def test_fork_slots_and_forks(seed):
     safe, ok, slot = twlk.allocate_fork_slots(ws.active, torch.as_tensor(ev))
     ws2 = twlk.execute_terminations(ws, torch.as_tensor(rng.random((BATCH, W)) < 0.0))
     nw, nls, nf, fp = twlk.execute_forks(ws2, torch.as_tensor(ls.copy()), torch.as_tensor(ev),
-                                         ws2.pos, t)
+                                         ws2.pos, None, t)
     for b in range(BATCH):
         js, jok, jslot = jwlk.allocate_fork_slots(jnp.asarray(active[b]), jnp.asarray(ev[b]))
         _eq(js, safe[b])
@@ -174,10 +174,11 @@ def test_protocol_config_validation():
         tprt.ProtocolConfig(round_impl="bad")
     assert tprt.ProtocolConfig(z0=8).p == jprt.ProtocolConfig(z0=8).p
     assert tprt.ProtocolConfig().static_fields == jprt.ProtocolConfig().static_fields
-    for bad in (dict(algorithm="missingperson"), dict(auto_eps=True),
-                dict(analytic_survival=True), dict(walk_variant="jump")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tprt.check_ported(tprt.ProtocolConfig(**bad))
+    for ported in (dict(algorithm="missingperson"), dict(algorithm="none"),
+                   dict(auto_eps=True), dict(analytic_survival=True)):
+        tprt.check_ported(tprt.ProtocolConfig(**ported))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tprt.check_ported(tprt.ProtocolConfig(walk_variant="jump"))
 
 
 FAIL = dict(burst_times=(70, 5), burst_sizes=(3, 2), p_fail=0.2, p_fail_start=10,

@@ -208,3 +208,38 @@ def test_cuda_serve_smoke_config_through_the_kernels(cuda, arch):
     torch.testing.assert_close(last, want, rtol=2e-4, atol=2e-4)
     gen, stats = generate(model, params, {"tokens": toks}, 4)
     assert gen.shape == (2, 4) and stats["decode_steps"] == 3
+
+
+def test_cuda_mixed_sweep_matches_cpu(cuda):
+    """A small mixed sweep (MissingPerson, ``none``, a DecAFork eps pair,
+    DecAFork+) on the card equals the same sweep on the CPU bitwise in its
+    integer outputs; the DecAFork group's rounds launch whole_round once
+    each, for both of its scenarios' rows at once."""
+    from repro_torch.api import Experiment
+    from repro_torch.core import FailureConfig, ProtocolConfig
+    from repro_torch.sweep import Scenario
+
+    steps, base = 60, dict(z0=6, max_walks=16, rt_bins=64, protocol_start=20,
+                           estimator_impl="auto")
+    bursts = FailureConfig(burst_times=(30,), burst_sizes=(3,))
+    scen = [
+        Scenario("mp", ProtocolConfig(algorithm="missingperson", eps_mp=25.0, **base), bursts),
+        Scenario("none", ProtocolConfig(algorithm="none", **base), bursts),
+        Scenario("eps=1.8", ProtocolConfig(eps=1.8, **base), bursts),
+        Scenario("eps=2.5", ProtocolConfig(eps=2.5, **base), FailureConfig()),
+        Scenario("plus", ProtocolConfig(algorithm="decafork+", eps=3.0, eps2=7.57, **base),
+                 FailureConfig(p_fail=0.01)),
+    ]
+    g = make_graph("regular", 40, seed=0, degree=4)
+    runs = {}
+    for dev in ("cpu", cuda):
+        exp = Experiment(graph=g, scenarios=scen, steps=steps, outputs="full", device=dev)
+        before = whole_round.launches
+        runs[str(dev)] = exp.sweep(seeds=3)
+        launches = whole_round.launches - before
+    assert launches == 2 * steps  # the DecAFork and DecAFork+ groups
+    for s in scen:
+        got, want = runs["cuda"][s.name], runs["cpu"][s.name]
+        for f in ("z", "forks", "terms", "failures", "fork_parent", "terminated"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), (s.name, f)
+        torch.testing.assert_close(got.theta_mean.cpu(), want.theta_mean, rtol=1e-6, atol=1e-6)

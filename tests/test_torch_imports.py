@@ -46,6 +46,8 @@ def test_port_imports_without_jax():
         "import repro_torch, repro_torch.api, repro_torch.convert, repro_torch.kernels\n"
         "import repro_torch.core.simulator, repro_torch.kernels.ops, repro_torch.data\n"
         "import repro_torch.models, repro_torch.launch.serve, repro_torch.configs\n"
+        "import repro_torch.sweep, repro_torch.api.results, repro_torch.api.placement\n"
+        "import repro_torch.graphs.spectral\n"
         "from repro_torch.configs import ARCH_IDS, get_config\n"
         "[get_config(a) for a in ARCH_IDS + ('paper_rwsgd',)]\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"

@@ -54,7 +54,7 @@ BURSTS = dict(burst_times=(8, 20), burst_sizes=(3, 4))
 FAILURES = {"churn": CHURN, "bursts": BURSTS}
 INT_FIELDS = ("z", "forks", "terms", "failures", "fork_parent", "terminated")
 CARRY = ("t", "walks.pos", "walks.active", "walks.track", "last_seen", "rts.hist",
-         "rts.total", "byz_state", "graph.node_up", "graph.edge_up")
+         "rts.total", "byz_state", "graph.node_up", "graph.edge_up", "theta_hist")
 
 
 def _pkw(alg):
@@ -200,12 +200,13 @@ def test_config_conversion_and_guards():
     assert f.burst_times == (5, 9) and f.p_fail == 0.25
     g = make_graph("ring", 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Experiment(graph=g, protocol=ProtocolConfig(algorithm="missingperson"), steps=5,
+        Experiment(graph=g, protocol=ProtocolConfig(walk_variant="jump"), steps=5,
                    device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Experiment(graph=g, protocol=ProtocolConfig(), steps=5, device="cpu", payload=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Experiment(graph=g, protocol=ProtocolConfig(), steps=5, device="cpu").sweep([])
+        Experiment(graph=g, protocol=ProtocolConfig(), steps=5, device="cpu").sweep(
+            [(ProtocolConfig(), FailureConfig())], seeds=1, store="results")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Experiment(graph=g, protocol=ProtocolConfig(), steps=5)
