@@ -1,16 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA H100.
 
-    python3 chip_smoke.py               # main path 6100, sweep 2100 of the paper's 9000 steps
-    python3 chip_smoke.py --steps 9000 --sweep-steps 9000  # the paper's full length
+    python3 chip_smoke.py               # the paper's 9000 steps, main path and sweep
     python3 chip_smoke.py --steps 300 --sweep-steps 300    # a quick pass through every phase
 
-The defaults cut the depth of the ensembles, the sweep, the profiler
-window and the 200-round checks of phases 4 and 5 so that the whole run
-stays within 65 % of a 20-minute budget (780 s): the round loops are
-host-bound (time per round does not shrink with fewer seeds), and the
-host's speed varies by 10-20 % from call to call. 6100 steps still fire
-both bursts (steps 2000 and 6000), the sweep's 2100 the first.
+Every round of phases 3-5 and 7 replays a captured CUDA graph (the
+Plan's executable cache, ``repro_torch.api.plan``), and every decode
+step of phase 6 too (``launch.serve.DecodeGraph``); each captured run's
+capture is timed apart from its replays, and short eager windows of the
+same runs are timed beside them and held to them bitwise.
 
 Phases, each printed on its own line:
 
@@ -22,66 +20,80 @@ Phases, each printed on its own line:
    registers and spills are printed;
 2. kernels: each kernel against its plain PyTorch version on the card,
    on numpy-seeded inputs at its path's shapes. The round kernels
-   bitwise (batch 50, n 100, C = W = 64, B = 1024, D = 8; round_update /
-   theta_sums also at n = 100,000, batch 1); flash_attention at yi-6b's
-   prefill (batch 4, S 512, H 32, KV 4, D 128, bf16, tolerance 3e-2; the
-   same batch and S at D 64 and D 256), paper-rwsgd's (S 128, H 8, KV 4,
-   D 32, f32, 2e-4) and a windowed shape (window 96, S 256, bf16);
-   ssd_intra_chunk at mamba2-1.3b's (batch 4, 2 chunks of 256, H 64,
-   P 64, N 128, 3e-4) with bf16 B / C (the served dtype, the row;
-   tensor cores) and with f32 B / C (the float32 gate's; CUDA cores).
+   bitwise (batch 50, n 100, C = W = 64, B = 1024, D = 8; whole_round
+   also at phase 7's 200 rows; round_update / theta_sums also at
+   n = 100,000, batch 1); flash_attention at yi-6b's prefill (batch 4,
+   S 512, H 32, KV 4, D 128, bf16, tolerance 3e-2; the same batch and S
+   at D 64 and D 256), paper-rwsgd's (S 128, H 8, KV 4, D 32, f32, 2e-4)
+   and a windowed shape (window 96, S 256, bf16); ssd_intra_chunk at
+   mamba2-1.3b's (batch 4, 2 chunks of 256, H 64, P 64, N 128, 3e-4)
+   with bf16 B / C (the served dtype, the row; tensor cores) and with
+   f32 B / C (the float32 gate's; exact float32 on the CUDA cores).
    Median times by CUDA events: each kernel's from Python (``ms``: eager,
    the wrapper's host cost included, as since the first slice) and on the
    device alone (``device_ms``: the same calls replayed as a CUDA graph),
    the plain version's time (eager), the bound (the larger of the bytes
-   over 3.35 TB/s and the operations over the rate for their type) and,
-   for attention, one ``scaled_dot_product_attention`` call on the same
-   inputs (``library_ms`` eager, ``library_device_ms`` graph);
+   over 3.35 TB/s and the operations over the rate for their type and
+   unit) and, for attention, one ``scaled_dot_product_attention`` call on
+   the same inputs (``library_ms`` eager, ``library_device_ms`` graph);
 3. main path: the paper's DecAFork and DecAFork+ ensembles (regular
    graph n = 100, d = 8; Z0 = 10, W = 64, B = 1024, 50 seeds, bursts of
-   5 and 6 walks at steps 2000 and 6000, decisions from step 1000; 6100
-   steps unless ``--steps`` says otherwise)
-   through ``repro_torch.api.Experiment`` on ``cuda``; the whole_round
-   launch count must equal the rounds run, and Z_t must survive near Z0;
-   then a 10-round torch.profiler window of the same configuration gives
-   the device's busy share and its kernels per round;
+   5 and 6 walks at steps 2000 and 6000, decisions from step 1000; 9000
+   steps unless ``--steps`` says otherwise) through
+   ``repro_torch.api.Experiment`` on ``cuda``, captured: ms per round of
+   the replays, trajectory-rounds/s, capture seconds; the whole_round
+   launch count (counted per replay) must equal the rounds run, and Z_t
+   must survive near Z0. Then each ensemble's first 200 rounds through
+   the eager loop (``run_rounds``), timed and held bitwise to the
+   captured run, and a 50-round torch.profiler window of the captured
+   round: the device's busy share and its kernels per round. Around each
+   timed run nvidia-smi's SM clock, temperature and power are sampled;
 4. cross-device parity: 160 rounds, 4 seeds, churny failures, on cuda and
    on the CPU; integer outputs bitwise, theta_mean within 1e-6;
 5. unfused paths, 160 rounds: ``round_impl="unfused"`` with
    ``estimator_impl`` = ``"fused"`` (round_update) and ``"pallas"``
-   (theta_sums); their integer outputs must equal the fused round's.
-   Then DecAFork+ with
-   ``auto_eps`` through theta_sums (one launch per round) and with the
-   analytic survival (no kernel), 200 steps, 4 seeds, cuda against the
-   CPU: integers bitwise, theta_mean within 1e-6;
+   (theta_sums), one launch per round; their integer outputs must equal
+   the fused round's. Then DecAFork+ with ``auto_eps`` through theta_sums
+   (one launch per round) and with the analytic survival (no kernel),
+   200 steps, 4 seeds, cuda against the CPU: integers bitwise,
+   theta_mean within 1e-6. Then captured against eager at full width
+   (200 steps, 50 seeds, decisions from step 50, churny failures) for a
+   fused group (DecAFork+), MissingPerson and auto_eps: outputs, final
+   carry and theta_mean bitwise;
 6. serve: ``repro_torch.launch.serve.generate`` on cuda for yi-6b
    (batch 4, prompt 512, 32 new tokens), mamba2-1.3b (the same) and
    paper-rwsgd (batch 4, prompt 128, 16 new tokens), at their published
    widths and depths with ``use_pallas=True`` and weights from
-   ``Model.init`` (seed 0), timed in the served dtype after a 2-token
-   warm-up. Each prefill must launch its kernel once per layer (the plain
-   path none). The gate runs the same weights in float32: the kernel
-   path's last-position logits must match ``use_pallas=False`` (plain
-   torch on the card) within ``F32_LOGIT_RTOL`` of the logit scale, and
-   its greedy tokens must equal the plain run's wherever the plain run's
-   top-2 logit gap exceeds that bound; the served dtype's gap is
-   recorded, and for the SSM model the float32 gap with the intra-chunk
-   block computed in float64 (how far an exact block lands from the
-   plain path's float32 rounding);
+   ``Model.init`` (seed 0), in the served dtype: a first generate
+   captures the decode step, the second is timed (captured decode
+   tokens/s), then ``generate_eager`` (eager tokens/s), whose tokens must
+   equal the captured ones; one eager decode step under torch.profiler
+   gives its kernels and busy share. Each prefill must launch its kernel
+   once per layer (the plain path none). The gate runs the same weights
+   in float32: the kernel path's last-position logits must match
+   ``use_pallas=False`` (plain torch on the card) within
+   ``F32_LOGIT_RTOL`` of the logit scale, and its greedy tokens must
+   equal the plain run's wherever the plain run's top-2 logit gap
+   exceeds that bound; the served dtype's gap is recorded, and for the
+   SSM model the float32 gap with the intra-chunk block computed in
+   float64 (how far an exact block lands from the plain path's float32
+   rounding);
 7. sweep: Fig. 1's three curves (MissingPerson eps_mp 400, DecAFork eps
    2.0, DecAFork+) and Fig. 5's DecAFork eps grid (1.8, 2.0, 2.25, 2.5)
    as one ``Experiment(scenarios=...).sweep(seeds=50)`` on cuda, in the
-   main path's configuration (2100 steps unless ``--sweep-steps`` says
+   main path's configuration (9000 steps unless ``--sweep-steps`` says
    otherwise): three groups (DecAFork 200 rows, DecAFork+ 50,
-   MissingPerson 50), each timed (ms per round, trajectory-rounds/s and
-   the ratio to phase 3's DecAFork ensemble). The two DecAFork groups
-   must launch whole_round once per round and decide fused, MissingPerson
-   not at all (unfused, with the reference's reason); every DecAFork /
-   DecAFork+ scenario must survive near Z0. Then parity at full width for
-   200 steps with decisions from step 50: each scenario of a cuda sweep
-   equals its own cuda ensemble bitwise, and a 4-seed mixed sweep (the
-   three algorithms and ``none``, churny failures) on cuda equals the
-   same sweep on the CPU (integers bitwise, theta_mean within 1e-6).
+   MissingPerson 50), each captured and timed as in phase 3 (ms per
+   round, trajectory-rounds/s, the ratio to phase 3's DecAFork ensemble,
+   capture seconds, an eager window held bitwise to it). The two
+   DecAFork groups must launch whole_round once per round and decide
+   fused, MissingPerson not at all (unfused, with the reference's
+   reason); every DecAFork / DecAFork+ scenario must survive near Z0.
+   Then parity at full width for 200 steps with decisions from step 50:
+   each scenario of a cuda sweep equals its own cuda ensemble bitwise,
+   and a 4-seed mixed sweep (the three algorithms and ``none``, churny
+   failures) on cuda equals the same sweep on the CPU (integers bitwise,
+   theta_mean within 1e-6).
 
 Before the last line it prints the card's name and power limit, then one
 JSON object with every kernel's launches, error and times; the last line
@@ -121,8 +133,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 PAPER = dict(n=100, degree=8, z0=10, max_walks=64, rt_bins=1024, protocol_start=1000,
              bursts=(2000, 6000), burst_sizes=(5, 6), steps=9000, seeds=50)
-MAIN_STEPS = 6100  # the default main-path length (see the module docstring)
-SWEEP_STEPS = 2100  # the default sweep length: the burst at step 2000 fires
+MAIN_STEPS = 9000  # the default main-path length: the paper's
+SWEEP_STEPS = 9000  # the default sweep length: the paper's
+EAGER_WINDOW = 200  # eager rounds timed beside each captured run (phases 3 and 7)
+PROFILE_ROUNDS = 50  # captured rounds under the profiler (phase 3)
 ALGS = {"decafork": dict(eps=2.0), "decafork+": dict(eps=3.0, eps2=7.57)}
 EPS_MP = 400.0  # MissingPerson's timeout in benchmarks/common.py
 EPS_GRID = (1.8, 2.0, 2.25, 2.5)  # Fig. 5's DecAFork grid (2.0 is Fig. 1's curve)
@@ -145,6 +159,51 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+class GpuSampler:
+    """nvidia-smi's SM clock, temperature and power draw every 200 ms
+    while a timed run lasts (one subprocess, stopped on exit), and the
+    host's state beside it: live Python objects and the CUDA caching
+    allocator's segments. ``summary`` holds the medians (the clock's
+    minimum too)."""
+
+    QUERY = "clocks.sm,temperature.gpu,power.draw"
+
+    def __enter__(self):
+        import gc
+
+        import torch
+
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", f"--query-gpu={self.QUERY}", "--format=csv,noheader,nounits",
+             "-lms", "200"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.host = dict(gc_objects=len(gc.get_objects()),
+                         allocator_segments=torch.cuda.memory_stats().get("segment.all.current"),
+                         reserved_gib=torch.cuda.memory_reserved() / 2**30)
+        return self
+
+    def __exit__(self, *exc):
+        import numpy as np
+
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        rows = []
+        for ln in out.splitlines():
+            try:
+                rows.append([float(v) for v in ln.split(",")])
+            except ValueError:
+                continue
+        a = np.array(rows) if rows else np.zeros((0, 3))
+        med = lambda i: float(np.median(a[:, i])) if len(a) else None  # noqa: E731
+        self.summary = dict(samples=len(a), sm_clock_mhz=med(0),
+                            sm_clock_min_mhz=float(a[:, 0].min()) if len(a) else None,
+                            temperature_c=med(1), power_w=med(2), **self.host)
+        return False
 
 
 def cuda_ms(fn, reps: int, groups: int = 7, graph: bool = False) -> float:
@@ -276,9 +335,7 @@ def check_kernels(rng, graph, dev, large_n=100_000):
         the non-tensor-core rate."""
         ms = cuda_ms(fn, reps)
         device_ms = cuda_ms(fn, reps, graph=True)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / OPS_PER_S * 1e3
-        bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        bound, by = core_bound(nbytes, nops)
         log("kernels", kernel=name, shape=shape, max_abs_err=err, ms=f"{ms:.6f}",
             device_ms=f"{device_ms:.6f}", plain_ms=f"{plain_ms:.6f}", bound_ms=f"{bound:.6f}",
             bound_by=by, bytes=nbytes, ops=nops)
@@ -322,26 +379,33 @@ def check_kernels(rng, graph, dev, large_n=100_000):
         else:
             rows[1]["large"] = ent
 
-    # whole_round at the main path's shapes, both algorithms
-    x = whole_round_inputs(rng, batch, n, C, B, D, W, K, graph, dev)
-    for plus in (False, True):
-        got = whole_round(*clone(x), decafork_plus=plus)
-        want = whole_round_plain(*clone(x), plus)
-        err = max_abs_err(got, want)
-        max_abs_err(whole_round_plain(*cpu(clone(x)), plus), want)
-    work = clone(x)
-    plain_ms = cuda_ms(lambda: whole_round_plain(*work, True), 1, 3)
-    # bytes: topology tables and uniforms, the walk vectors, and the rows
-    # the walks visit (last_seen, hist, total read; outputs written)
-    visited = sum(len(set(p.tolist())) for p in x[5].cpu())
-    nbytes = (batch * (n * D * (1 + 4 + 4 + 1) + n * (1 + 4 + 4 + 1 + 1))
-              + batch * W * (4 * 8 + 4 * K + D * 8)
-              + visited * (C * 4 + B * 2 + 4))
-    rows.append(entry("whole_round", "src/repro_torch/csrc/whole_round.cu",
-                      "src/repro/kernels/round_update.py:442", err,
-                      lambda: whole_round(*work, decafork_plus=True), plain_ms,
-                      nbytes, batch * (3 * n * D + W * (4 * D + (1 + K) * W + B + 2 * C)),
-                      f"batch={batch},n={n}", 50))
+    # whole_round at the main path's shapes (both algorithms), then at
+    # phase 7's 200-row DecAFork group (two waves over the 132 SMs)
+    for bt in (batch, 200):
+        x = whole_round_inputs(rng, bt, n, C, B, D, W, K, graph, dev)
+        for plus in (False, True):
+            got = whole_round(*clone(x), decafork_plus=plus)
+            want = whole_round_plain(*clone(x), plus)
+            err = max_abs_err(got, want)
+            if bt == batch:
+                max_abs_err(whole_round_plain(*cpu(clone(x)), plus), want)
+        work = clone(x)
+        plain_ms = cuda_ms(lambda: whole_round_plain(*work, True), 1, 3)
+        # bytes: topology tables and uniforms, the walk vectors, and the
+        # rows the walks visit (last_seen, hist, total read; outputs written)
+        visited = sum(len(set(p.tolist())) for p in x[5].cpu())
+        nbytes = (bt * (n * D * (1 + 4 + 4 + 1) + n * (1 + 4 + 4 + 1 + 1))
+                  + bt * W * (4 * 8 + 4 * K + D * 8)
+                  + visited * (C * 4 + B * 2 + 4))
+        ent = entry("whole_round", "src/repro_torch/csrc/whole_round.cu",
+                    "src/repro/kernels/round_update.py:442", err,
+                    lambda: whole_round(*work, decafork_plus=True), plain_ms,
+                    nbytes, bt * (3 * n * D + W * (4 * D + (1 + K) * W + B + 2 * C)),
+                    f"batch={bt},n={n}", 50)
+        if bt == batch:
+            rows.append(ent)
+        else:
+            rows[-1]["batch200"] = ent
     return rows
 
 
@@ -367,6 +431,15 @@ def sass_check(source):
     if out["hgmma"] == 0:
         raise AssertionError(f"{source}: no HGMMA in the SASS (wgmma not issued)")
     return out
+
+
+def core_bound(nbytes, nops):
+    """(bound ms, "bytes" or "operations"): bytes over HBM bandwidth
+    against simple (integer / float32) operations over the rate outside
+    the tensor cores."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def tc_bound(nbytes, flops, dtype_name):
@@ -465,7 +538,10 @@ def check_model_kernels(rng, dev):
         plain_ms = cuda_ms(lambda: ssd_intra_chunk_plain(x, da, bd, cd), 3, 3)
         nbytes = B * nc * (Q * H * P * 4 * 2 + Q * H * 4 + 2 * Q * N * bd.element_size()
                            + H * P * N * 4)
-        bound, by = tc_bound(nbytes, flops, "float32")
+        # bf16 B / C run on the tensor cores (TF32 products); float32 B / C
+        # stay exact on the CUDA cores (the float32 serving gate needs it)
+        bound, by = (tc_bound(nbytes, flops, "float32") if dt == "bfloat16"
+                     else core_bound(nbytes, flops))
         shape = f"B={B},nc={nc},Q={Q},H={H},P={P},N={N},x f32,B/C {dt}"
         log("kernels", kernel="ssd_intra_chunk", shape=shape, max_abs_err=err, tol=3e-4,
             ms=f"{ms:.6f}", device_ms=f"{device_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
@@ -548,6 +624,39 @@ def ssd_in_f64_gap(model, params, toks, plain32):
     return float((last - plain32).abs().max())
 
 
+def profile_decode(model, params, tokens, steps=4):
+    """One eager decode step (decode_step plus greedy sampling) under
+    torch.profiler, ``steps`` times after a warm-up step: CUDA kernels per
+    step, their device ms per step and the busy share (kernel time over
+    the profiled wall time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import expand_cache
+
+    last, cache = model.prefill(params, {"tokens": tokens})
+    cache = expand_cache(model, cache, tokens.shape[1] + steps + 2)
+    tok = torch.argmax(last, dim=-1).to(torch.int32)
+    logits, cache = model.decode_step(params, cache, {"tokens": tok})
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = model.decode_step(params, cache, {"tokens": tok})
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events)
+    if not busy:
+        raise AssertionError("the profiler saw no device time in the eager decode step")
+    return dict(steps=steps, kernels_per_step=sum(e.count for e in events) / steps,
+                kernel_ms_per_step=busy / steps / 1e3, wall_ms_per_step=wall_us / steps / 1e3,
+                busy_share=busy / wall_us)
+
+
 def serve_models(dev):
     """Phase 6 for each model of ``SERVE``; returns (results, launches of
     flash_attention and ssd_intra_chunk over the phase)."""
@@ -558,7 +667,7 @@ def serve_models(dev):
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import KERNELS, flash_attention, ssd_intra_chunk
-    from repro_torch.launch.serve import generate
+    from repro_torch.launch.serve import generate, generate_eager
     from repro_torch.models import Model
     from repro_torch.utils import prng
 
@@ -582,20 +691,30 @@ def serve_models(dev):
                                dtype=torch.int32, device=dev)
         batch_in = {"tokens": toks}
 
-        # the served dtype, through the kernels: one short warm-up call
-        # (first-use costs of the library's matrix products stay out of
-        # the timing), then the timed generate
+        # the served dtype, through the kernels: a first generate captures
+        # the decode step, a second refills the allocator's cache (the
+        # capture empties it) and keeps first-use costs of the library's
+        # matrix products out of the timing; the third, timed, replays the
+        # graph; then the eager loop on the same inputs
         before = kern.launches
-        generate(model, params, batch_in, 2)
+        generate(model, params, batch_in, new)
+        (decode_graph,) = model.decode_graphs.values()
+        generate(model, params, batch_in, new)
         torch.cuda.reset_peak_memory_stats()
         gen, stats = generate(model, params, batch_in, new)
         torch.cuda.synchronize()
         serve_peak = torch.cuda.max_memory_allocated()
-        if kern.launches - before != 2 * L:  # one prefill in each generate
+        eager_gen, eager_stats = generate_eager(model, params, batch_in, new)
+        if kern.launches - before != 4 * L:  # one prefill in each generate
             raise AssertionError(f"{arch}: generate did not launch {kern.__name__} once per layer")
+        if len(model.decode_graphs) != 1:
+            raise AssertionError(f"{arch}: one signature captured {len(model.decode_graphs)} graphs")
         if not (gen.shape == (batch, new) and int(gen.min()) >= 0
                 and int(gen.max()) < cfg.vocab_size):
             raise AssertionError(f"{arch}: generated tokens of shape {tuple(gen.shape)} out of range")
+        if not torch.equal(gen, eager_gen):
+            raise AssertionError(f"{arch}: captured decode tokens differ from the eager loop's")
+        decode_prof = profile_decode(model, params, toks)
         last = prefill_launches(model, params, toks, kern, L, arch)
         plain_last = prefill_launches(plain, params, toks, kern, L, arch)
         if not (torch.isfinite(last).all() and torch.isfinite(plain_last).all()):
@@ -633,10 +752,20 @@ def serve_models(dev):
                                          f"with top-2 gap {float(gaps[b, i])} > {bound}")
         exact_gap = ssd_in_f64_gap(model, params, toks, plain32) if cfg.arch_type == "ssm" else None
         prefill_ms = stats["prefill_s"] * 1e3
+        step_ms = stats["decode_s"] * 1e3 / max(stats["decode_steps"], 1)
+        # the captured step runs the eager step's kernels: their device
+        # time over the captured step's wall time
+        captured_busy = decode_prof["kernel_ms_per_step"] / step_ms
         out = dict(arch=cfg.name, params=n_params, dtype=cfg.dtype, layers=L, batch=batch,
                    prompt=prompt, new_tokens=new, init_s=init_s, init_peak_bytes=init_peak,
                    serve_peak_bytes=serve_peak, prefill_ms=prefill_ms, decode_s=stats["decode_s"],
                    decode_steps=stats["decode_steps"], decode_tokens_per_s=stats["tokens_per_s"],
+                   decode_ms_per_step=step_ms, decode_capture_s=decode_graph.capture_s,
+                   eager_decode_tokens_per_s=eager_stats["tokens_per_s"],
+                   eager_decode_ms_per_step=eager_stats["decode_s"] * 1e3
+                   / max(eager_stats["decode_steps"], 1),
+                   eager_step_profile=decode_prof, captured_busy_share_derived=captured_busy,
+                   captured_tokens_equal_eager=True,
                    served_dtype_logit_gap=served_gap, served_dtype_logit_scale=served_scale,
                    f32_logits_max_abs_err=err, f32_logits_bound=bound, f32_logit_scale=scale,
                    f32_tokens_compared=compared, f32_streams_stopped_at_a_near_tie=ties,
@@ -647,6 +776,11 @@ def serve_models(dev):
             init_peak_GiB=f"{init_peak / 2**30:.3f}", serve_peak_GiB=f"{serve_peak / 2**30:.3f}",
             prefill_ms=f"{prefill_ms:.3f}", decode_steps=stats["decode_steps"],
             decode_tokens_per_s=f"{stats['tokens_per_s']:.1f}",
+            eager_decode_tokens_per_s=f"{eager_stats['tokens_per_s']:.1f}",
+            decode_capture_s=f"{decode_graph.capture_s:.3f}",
+            eager_step_kernels=decode_prof["kernels_per_step"],
+            eager_step_busy_share=f"{decode_prof['busy_share']:.4f}",
+            captured_busy_share_derived=f"{captured_busy:.4f}", tokens="captured == eager",
             served_logit_gap=f"{served_gap}/{served_scale}", f32_logits_max_abs_err=err,
             f32_bound=f"{bound:.3g}", f32_tokens_compared=compared, near_ties=ties,
             f32_err_with_ssd_block_in_f64=exact_gap,
@@ -668,7 +802,7 @@ def experiment(graph, alg, steps, device, *, protocol_start, failures, **pkw):
 
     pcfg = ProtocolConfig(
         algorithm=alg, z0=PAPER["z0"], max_walks=PAPER["max_walks"],
-        rt_bins=PAPER["rt_bins"], protocol_start=protocol_start, **ALGS[alg], **pkw,
+        rt_bins=PAPER["rt_bins"], protocol_start=protocol_start, **ALGS.get(alg, {}), **pkw,
     )
     return Experiment(graph=graph, protocol=pcfg, failures=FailureConfig(**failures),
                       steps=steps, outputs="full", device=device)
@@ -682,10 +816,22 @@ def main_experiment(graph, alg, steps):
                       estimator_impl="auto", round_impl="auto")
 
 
-def main_path(graph, steps, seeds, kernel_ms):
+def new_runner(slots):
+    """The runner the last call added to the Plan's executable cache
+    (``slots``: the cache's keys before that call)."""
+    from repro_torch.api import plan as plan_mod
+
+    (runner,) = [r for k, r in plan_mod._EXECUTABLES.items() if k not in slots]
+    return runner
+
+
+def main_path(graph, steps, seeds, kernel_device_ms):
+    """Phase 3: the ensembles through ``Experiment.ensemble``, each round a
+    replay of one captured round (its capture timed apart)."""
     import numpy as np
     import torch
 
+    from repro_torch.api import plan as plan_mod
     from repro_torch.kernels import whole_round
 
     res = {}
@@ -694,12 +840,17 @@ def main_path(graph, steps, seeds, kernel_ms):
         (_, _, decision), = exp.plan().round_decisions()
         if not decision.fused:
             raise AssertionError(f"the main path did not fuse: {decision.reason}")
+        slots = set(plan_mod._EXECUTABLES)
         torch.cuda.synchronize()
         before = whole_round.launches
-        t0 = time.perf_counter()
-        outs = exp.ensemble(seeds)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with GpuSampler() as gpu:
+            t0 = time.perf_counter()
+            outs = exp.ensemble(seeds)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        runner = new_runner(slots)
+        if runner.captures != 1:
+            raise AssertionError(f"{alg}: the ensemble's rounds were not one captured graph")
         launches = whole_round.launches - before
         if launches != steps:
             raise AssertionError(f"whole_round launched {launches} times for {steps} rounds")
@@ -714,59 +865,130 @@ def main_path(graph, steps, seeds, kernel_ms):
             raise AssertionError(f"{alg}: survival {alive}, mean Z after start {mean_z}")
         if not np.isfinite(outs.theta_mean.cpu().numpy()).all():
             raise AssertionError(f"{alg}: non-finite theta_mean")
-        ms_round = wall * 1e3 / steps
-        share = launches * kernel_ms / (wall * 1e3)
-        res[alg] = dict(steps=steps, seeds=seeds, wall_s=wall, ms_per_round=ms_round,
-                        trajectory_rounds_per_s=seeds * steps / wall,
-                        kernel_share=share, survival=alive, mean_z_after_start=mean_z,
+        replay_s = wall - runner.capture_s
+        ms_round = replay_s * 1e3 / steps
+        share = launches * kernel_device_ms / (replay_s * 1e3)
+        res[alg] = dict(steps=steps, seeds=seeds, wall_s=wall, capture_s=runner.capture_s,
+                        ms_per_round=ms_round,
+                        trajectory_rounds_per_s=seeds * steps / replay_s,
+                        whole_round_share=share, survival=alive, mean_z_after_start=mean_z,
                         max_z=int(z.max()), min_z_after_start=int(post.min()),
                         forks=int(outs.forks.sum()), terms=int(outs.terms.sum()),
-                        whole_round_launches=launches)
+                        whole_round_launches=launches, gpu=gpu.summary,
+                        head=outs.map(lambda v: v[:, :EAGER_WINDOW]))
         log("main", alg=alg, steps=steps, seeds=seeds, wall_s=f"{wall:.3f}",
-            ms_per_round=f"{ms_round:.4f}",
-            trajectory_rounds_per_s=f"{seeds * steps / wall:.1f}",
-            kernel_share=f"{share:.4f}", survival=alive, mean_z=f"{mean_z:.3f}",
-            whole_round_launches=launches)
+            capture_s=f"{runner.capture_s:.3f}", captured_ms_per_round=f"{ms_round:.4f}",
+            trajectory_rounds_per_s=f"{seeds * steps / replay_s:.1f}",
+            whole_round_share=f"{share:.4f}", survival=alive, mean_z=f"{mean_z:.3f}",
+            whole_round_launches=launches, gpu=gpu.summary)
     return res
 
 
-def profile_rounds(graph, seeds, rounds=10):
-    """Device busy share over ``rounds`` rounds of the main path, from
-    torch.profiler's CUDA kernel times: all kernels, and whole_round
-    alone, over the profiled wall time (the profiler's own overhead
-    lengthens the wall, so both shares are lower bounds)."""
+def eager_window(label, setup, keys, spec, decision, head, rounds=None):
+    """The same run's first ``rounds`` rounds through the eager loop
+    (``run_rounds``): their ms per round, and their outputs against the
+    captured run's (``head``), integers and theta_mean bitwise; then the
+    same window again with Python's cyclic garbage collector off (its ms
+    per round: what the collector costs the host's launch loop)."""
+    import gc
+
+    import torch
+
+    from repro_torch.core import simulator as sim
+
+    rounds = rounds or head.z.shape[-1]
+
+    def timed():
+        state = sim.init_state(keys, setup)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _final, rec = sim.run_rounds(state, setup, rounds, spec, decision)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / rounds, rec
+
+    with GpuSampler() as gpu:
+        ms, rec = timed()
+    for f in rec._fields:
+        got, want = getattr(rec, f).cpu(), getattr(head, f).reshape(getattr(rec, f).shape).cpu()
+        if got.dtype.is_floating_point:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: the eager loop's {f} differs from the captured run's")
+    gc.disable()
+    try:
+        gpu.summary["eager_ms_per_round_gc_off"] = timed()[0]
+    finally:
+        gc.enable()
+    return ms, gpu.summary
+
+
+def main_eager_windows(graph, seeds, main_res):
+    """Phase 3's eager ms per round over the first EAGER_WINDOW rounds of
+    each ensemble, from the same keys, held to its captured run."""
+    from repro_torch.utils import prng
+
+    for alg, r in main_res.items():
+        plan = main_experiment(graph, alg, r["steps"]).plan()
+        keys = prng.split(prng.key(0, device="cuda"), seeds)
+        ms, gpu = eager_window(f"phase 3 {alg}", plan._setup(seeds), keys, plan.spec,
+                               plan.decision, r.pop("head"))
+        r.update(eager_ms_per_round=ms, captured_speedup=ms / r["ms_per_round"], eager_gpu=gpu)
+        log("main", alg=alg, eager_rounds=EAGER_WINDOW, eager_ms_per_round=f"{ms:.4f}",
+            eager_ms_per_round_gc_off=f"{gpu['eager_ms_per_round_gc_off']:.4f}",
+            captured_ms_per_round=f"{r['ms_per_round']:.4f}",
+            captured_speedup=f"{ms / r['ms_per_round']:.2f}",
+            outputs="eager window bitwise the captured run", gpu=gpu)
+
+
+def profile_rounds(graph, seeds, rounds=PROFILE_ROUNDS):
+    """The captured round under torch.profiler: ``rounds`` replays of the
+    main path's round after its capture. Busy share: the CUDA kernels'
+    device time over the profiled wall time (all kernels, and
+    whole_round alone); kernels per round from the same events. Beside
+    it, CUDA events around the same replays without the profiler give
+    the device's ms per round."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import simulator as sim
+    from repro_torch.core.outputs import SCALARS
     from repro_torch.utils import prng
 
     res = {}
     for alg in ALGS:
-        plan = main_experiment(graph, alg, PAPER["steps"]).plan()
+        plan = main_experiment(graph, alg, rounds).plan()
         keys = prng.split(prng.key(0, device="cuda"), seeds)
         setup = plan._setup(seeds)
+        runner = sim.RoundRunner(setup, SCALARS, plan.decision)
         state = sim.init_state(keys, setup)
-        # a round issues the same operations before and after
-        # protocol_start (decisions are masks), so a short warm-up will do
-        state, _ = sim.run_rounds(state, setup, 5, decision=plan.decision)
+        runner.run(state, setup)  # captures
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        a.record()
+        runner.run(state, setup)
+        b.record()
+        b.synchronize()
+        event_ms = a.elapsed_time(b) / rounds
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            sim.run_rounds(state, setup, rounds, decision=plan.decision)
+            runner.run(state, setup)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in events)
         wr = sum(e.self_device_time_total for e in events if "whole_round" in e.key)
         launches = sum(e.count for e in events)
-        out = dict(rounds=rounds, wall_ms_per_round=wall_us / rounds / 1e3,
+        out = dict(rounds=rounds, captured=True, event_ms_per_round=event_ms,
+                   profiled_wall_ms_per_round=wall_us / rounds / 1e3,
+                   graph_nodes_attributed=bool(busy),
                    device_busy_share=busy / wall_us if busy else None,
                    whole_round_share=wr / wall_us if busy else None,
-                   device_kernels_per_round=launches / rounds if busy else None)
+                   device_kernels_per_round=launches / rounds if busy else None,
+                   device_kernel_ms_per_round=busy / rounds / 1e3 if busy else None)
         log("profile", alg=alg,
-            **{k: ("not measured" if v is None else v) for k, v in out.items()})
+            **{k: ("not measured (graph nodes not attributed)" if v is None else v)
+               for k, v in out.items()})
         res[alg] = out
     return res
 
@@ -883,6 +1105,70 @@ def estimator_modes(graph, counts):
     return res
 
 
+def captured_vs_eager(graph):
+    """At full width for 200 steps, with decisions from step 50 under the
+    CHURN failures: a captured run (``RoundRunner``) equals the eager loop
+    (``run_rounds``) bitwise in its integer outputs, its final carry and
+    theta_mean, for a fused group (DecAFork+), MissingPerson and
+    auto_eps (theta_sums)."""
+    import torch
+
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.outputs import FULL
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_leaves
+
+    steps, seeds = 200, PAPER["seeds"]
+    kw = dict(protocol_start=50, failures=CHURN)
+    res = {}
+    for label, exp in (
+        ("fused", experiment(graph, "decafork+", steps, "cuda", estimator_impl="auto", **kw)),
+        ("missingperson", experiment(graph, "missingperson", steps, "cuda", eps_mp=50.0, **kw)),
+        ("auto_eps", experiment(graph, "decafork+", steps, "cuda", auto_eps=True,
+                                estimator_impl="pallas", auto_min_samples=5, **kw)),
+    ):
+        plan = exp.plan()
+        alg = plan.pcfg.algorithm
+        setup = plan._setup(seeds)
+        keys = prng.split(prng.key(3, device="cuda"), seeds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = sim.run_rounds(sim.init_state(keys, setup), setup, steps, FULL, plan.decision)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        runner = sim.RoundRunner(setup, FULL, plan.decision)
+        runner.run(sim.init_state(keys, setup), setup)  # captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = runner.run(sim.init_state(keys, setup), setup)
+        torch.cuda.synchronize()
+        captured_s = time.perf_counter() - t0
+        for part, g, w in (("final carry", got[0], want[0]),
+                           ("outputs", tuple(got[1]), tuple(want[1]))):
+            g, w = tree_leaves(g), tree_leaves(w)
+            if len(g) != len(w) or not g:
+                raise AssertionError(f"captured {label}: {part} has another structure")
+            for x, y in zip(g, w):
+                x, y = x.cpu(), y.cpu()
+                if x.dtype.is_floating_point:
+                    x, y = x.view(torch.int32), y.view(torch.int32)
+                if not torch.equal(x, y):
+                    raise AssertionError(f"captured {label}: {part} differs from the eager loop")
+        forks = int(want[1].forks.sum())
+        if forks == 0:
+            raise AssertionError(f"captured {label}: no rule fired")
+        res[label] = dict(steps=steps, seeds=seeds, algorithm=alg, fused=plan.decision.fused,
+                          eager_ms_per_round=eager_s * 1e3 / steps,
+                          captured_ms_per_round=captured_s * 1e3 / steps,
+                          capture_s=runner.capture_s, forks=forks)
+        log("captured", case=label, alg=alg, steps=steps, seeds=seeds,
+            eager_ms_per_round=f"{eager_s * 1e3 / steps:.4f}",
+            captured_ms_per_round=f"{captured_s * 1e3 / steps:.4f}",
+            capture_s=f"{runner.capture_s:.3f}", forks=forks,
+            integers_final_carry_theta_mean="bitwise the eager loop")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 7: the paper's figure sweeps
 # ---------------------------------------------------------------------------
@@ -913,8 +1199,10 @@ def sweep_phase(graph, steps, seeds, phase3):
     import torch
 
     from repro_torch.api import Experiment
+    from repro_torch.api import plan as plan_mod
     from repro_torch.core import simulator as sim
     from repro_torch.kernels import KERNELS, whole_round
+    from repro_torch.utils import prng
 
     fail = dict(burst_times=PAPER["bursts"], burst_sizes=PAPER["burst_sizes"])
     scen = figure_scenarios(PAPER["protocol_start"], fail, EPS_MP)
@@ -926,21 +1214,30 @@ def sweep_phase(graph, steps, seeds, phase3):
         if d.fused == mp or (mp and d.reason != "algorithm 'missingperson' has no fused round"):
             raise AssertionError(f"group {idxs} ({alg}): {d}")
         decisions.append(dict(scenarios=[scen[i].name for i in idxs], impl=d.impl, reason=d.reason))
-    groups = []
+    groups, runners = [], []
     stacked = plan.sweep_stacked
 
-    def timed(scenarios, **kw):  # each group's wall time and launches
+    def timed(scenarios, **kw):  # each group's wall time, capture and launches
+        slots = set(plan_mod._EXECUTABLES)
         torch.cuda.synchronize()
         before = whole_round.launches
-        t0 = time.perf_counter()
-        out = stacked(scenarios, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with GpuSampler() as gpu:
+            t0 = time.perf_counter()
+            out = stacked(scenarios, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        runner = new_runner(slots)
+        if runner.captures != 1:
+            raise AssertionError(f"group {[s.name for s in scenarios]}: not one captured graph")
+        runners.append((runner, out.map(lambda v: v[:, :, :EAGER_WINDOW])))
+        replay_s = wall - runner.capture_s
         rows = len(scenarios) * seeds
         groups.append(dict(scenarios=[s.name for s in scenarios],
-                           algorithm=scenarios[0].pcfg.algorithm, rows=rows, steps=steps, wall_s=wall, ms_per_round=wall * 1e3 / steps,
-                           trajectory_rounds_per_s=rows * steps / wall,
-                           whole_round_launches=whole_round.launches - before))
+                           algorithm=scenarios[0].pcfg.algorithm, rows=rows, steps=steps,
+                           wall_s=wall, capture_s=runner.capture_s,
+                           ms_per_round=replay_s * 1e3 / steps,
+                           trajectory_rounds_per_s=rows * steps / replay_s,
+                           whole_round_launches=whole_round.launches - before, gpu=gpu.summary))
         return out
 
     plan.sweep_stacked = timed
@@ -949,17 +1246,29 @@ def sweep_phase(graph, steps, seeds, phase3):
     res = plan.sweep(seeds=seeds)
     counts = {k.__name__: k.launches for k in KERNELS}
     base = phase3["decafork"]["trajectory_rounds_per_s"]
-    for g in groups:
+    keys = prng.split(prng.key(0, device="cuda"), seeds)
+    for g, (runner, head) in zip(groups, runners):
         want = 0 if g["algorithm"] == "missingperson" else steps
         if g["whole_round_launches"] != want:
             raise AssertionError(f"group {g['scenarios']}: whole_round launched "
                                  f"{g['whole_round_launches']} times, expected {want}")
         g["vs_phase3_decafork"] = g["trajectory_rounds_per_s"] / base
+        # the group's first rounds through the eager loop, from the same
+        # rows (the runner's static setup holds the group's values)
+        S = len(g["scenarios"])
+        eager, eager_gpu = eager_window(f"phase 7 {g['scenarios']}", runner.setup,
+                                        keys.repeat(S, 1), runner.spec, runner.decision, head)
+        g.update(eager_ms_per_round=eager, captured_speedup=eager / g["ms_per_round"],
+                 eager_gpu=eager_gpu)
         log("sweep", group=repr(",".join(g["scenarios"])), rows=g["rows"], steps=steps,
-            wall_s=f"{g['wall_s']:.3f}", ms_per_round=f"{g['ms_per_round']:.4f}",
+            wall_s=f"{g['wall_s']:.3f}", capture_s=f"{g['capture_s']:.3f}",
+            captured_ms_per_round=f"{g['ms_per_round']:.4f}",
             trajectory_rounds_per_s=f"{g['trajectory_rounds_per_s']:.1f}",
             vs_phase3_decafork=f"{g['vs_phase3_decafork']:.3f}",
-            whole_round_launches=g["whole_round_launches"])
+            eager_ms_per_round=f"{eager:.4f}",
+            eager_ms_per_round_gc_off=f"{eager_gpu['eager_ms_per_round_gc_off']:.4f}",
+            captured_speedup=f"{eager / g['ms_per_round']:.2f}",
+            whole_round_launches=g["whole_round_launches"], gpu=g["gpu"], eager_gpu=eager_gpu)
     start = min(PAPER["protocol_start"], steps - 1)
     burst = PAPER["bursts"][0]
     per = {}
@@ -1092,10 +1401,12 @@ def main() -> int:
                         f"{fired} fire; n, W, B and seeds uncut")
     for k in KERNELS:  # the main path's counts start here
         k.launches = 0
-    main_res = main_path(graph, args.steps, PAPER["seeds"], by_name["whole_round"]["ms"])
+    main_res = main_path(graph, args.steps, PAPER["seeds"], by_name["whole_round"]["device_ms"])
     counts = {k.__name__: k.launches for k in KERNELS}
     log("main", launches=counts)
     lap("3 main path")
+    main_eager_windows(graph, PAPER["seeds"], main_res)
+    lap("3 eager window")
     profile = profile_rounds(graph, PAPER["seeds"])
     lap("3 profile")
     parity = cross_device(graph)
@@ -1104,6 +1415,8 @@ def main() -> int:
     lap("5 unfused paths")
     unfused.update(estimator_modes(graph, counts))
     lap("5 estimator modes")
+    captured = captured_vs_eager(graph)
+    lap("5 captured vs eager")
     serve, serve_counts = serve_models("cuda")
     lap("6 serve")
     counts.update(serve_counts)
@@ -1128,8 +1441,8 @@ def main() -> int:
     detail = dict(nvidia_smi=smi, device=name, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
                   build_s_by_source=build, sass=sass, kernels=rows,
-                  main=main_res, profile=profile, parity=parity, unfused=unfused, serve=serve,
-                  sweep=sweep, phase_s=phase_s)
+                  main=main_res, profile=profile, parity=parity, unfused=unfused,
+                  captured_vs_eager=captured, serve=serve, sweep=sweep, phase_s=phase_s)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(detail, fh, indent=1)

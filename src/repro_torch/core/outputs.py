@@ -28,6 +28,12 @@ class StepOutputs(NamedTuple):
 
 ALL_FIELDS: Tuple[str, ...] = StepOutputs._fields
 SCALAR_FIELDS: Tuple[str, ...] = ("z", "forks", "terms", "failures", "theta_mean")
+# each field's dtype; the per-walk fields carry a trailing (W,) axis
+FIELD_DTYPES = {
+    "z": torch.int32, "forks": torch.int32, "terms": torch.int32, "failures": torch.int32,
+    "theta_mean": torch.float32, "fork_parent": torch.int32, "terminated": torch.bool,
+}
+PER_WALK_FIELDS: Tuple[str, ...] = ("fork_parent", "terminated")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +131,16 @@ class RecordedOutputs:
     def __repr__(self):
         body = ", ".join(f"{f}={v!r}" for f, v in zip(self._fields, self._values))
         return f"RecordedOutputs({body})"
+
+
+def empty_recording(spec: OutputSpec, batch: int, steps: int, walks: int, device) -> tuple:
+    """Uninitialised (batch, steps, ...) buffers for ``spec.fields``, which
+    a captured round fills one step at a time."""
+    return tuple(
+        torch.empty((batch, steps) + ((walks,) if f in PER_WALK_FIELDS else ()),
+                    dtype=FIELD_DTYPES[f], device=device)
+        for f in spec.fields
+    )
 
 
 def stack_rounds(spec: OutputSpec, rounds: Sequence[tuple]) -> RecordedOutputs:

@@ -12,10 +12,13 @@ One synchronous round (t -> t+1), as in the reference:
      replacement; ``"none"`` decides nothing);
   6. forks and terminations execute through the slot machinery.
 
-The state carries a leading batch axis (one row per trajectory); the
-reference's ``lax.scan`` is a Python loop over rounds, and every random
-stream folds the carried step counter ``t``, so where a run is cut
-cannot change a drawn bit. Two round implementations exist:
+The state carries a leading batch axis (one row per trajectory). The
+reference's jitted ``lax.scan`` is :class:`RoundRunner`: one round
+captured as a CUDA graph and replayed per round (eagerly through the
+same static buffers on the CPU); ``run_rounds`` is the eager Python loop
+over rounds it is held to. Every random stream folds the carried step
+counter ``t``, so where a run is cut cannot change a drawn bit. Two
+round implementations exist:
 
   - ``protocol_step_unfused``: the literal stage sequence, the oracle
     (``round_impl="unfused"``); its estimator is ``gather``, ``compare``,
@@ -34,6 +37,7 @@ place round to round: a round writes W rows of an n-row table.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -43,7 +47,14 @@ from repro_torch.core import estimator as est
 from repro_torch.core import failures as flr
 from repro_torch.core import protocol as prt
 from repro_torch.core import walkers as wlk
-from repro_torch.core.outputs import SCALARS, OutputSpec, StepOutputs, stack_rounds
+from repro_torch.core.outputs import (
+    SCALARS,
+    OutputSpec,
+    RecordedOutputs,
+    StepOutputs,
+    empty_recording,
+    stack_rounds,
+)
 from repro_torch.graphs.generators import Graph
 from repro_torch.graphs.spectral import stationary_distribution
 from repro_torch.graphs.state import (
@@ -53,9 +64,11 @@ from repro_torch.graphs.state import (
     mirror_indices,
 )
 from repro_torch.kernels import platform
+from repro_torch.kernels.capture import Captured
 from repro_torch.kernels.round_update import round_update, whole_round
 from repro_torch.kernels.theta_survival import theta_sums
 from repro_torch.utils import prng
+from repro_torch.utils.tree import copy_into, tree_clone, tree_leaves
 
 
 class SimState(NamedTuple):
@@ -457,8 +470,92 @@ def run_rounds(state: SimState, setup: Setup, length: int, spec: OutputSpec = SC
 def run_core(keys: torch.Tensor, setup: Setup, spec: OutputSpec = SCALARS,
              decision: RoundDecision | None = None):
     """One trajectory per key row, ``setup.steps`` rounds from the
-    initial state: ``(final SimState, RecordedOutputs)``."""
+    initial state, eagerly: ``(final SimState, RecordedOutputs)``."""
     return run_rounds(init_state(keys, setup), setup, setup.steps, spec, decision)
+
+
+# ---------------------------------------------------------------------------
+# Captured rounds
+# ---------------------------------------------------------------------------
+
+
+def _setup_tensors(setup: Setup) -> tuple:
+    return (setup.neighbors, setup.degrees, setup.mirror, setup.prows, setup.frows, setup.pi)
+
+
+class RoundRunner:
+    """``setup.steps`` rounds of one static structure (Setup shapes and
+    static protocol fields, RoundDecision, OutputSpec, batch), run as the
+    reference runs its jitted scan: on CUDA one ``protocol_step`` is
+    captured as a CUDA graph at the first run and replayed once per round;
+    on the CPU the same round runs eagerly through the same buffers.
+
+    The runner owns static inputs: the ``SimState`` fields, the Setup's
+    tensors (graph, protocol and failure rows) and the recorded
+    (batch, steps, ...) buffers. A run copies the caller's state and
+    setup values into them, so re-running with new keys, thresholds,
+    rates or schedules captures nothing new. The captured round ends by
+    copying the next state into the static state and writing each
+    recorded field at a device-side step index, so the round index never
+    passes through Python. Results are copies: a later run does not
+    overwrite them. A failed capture or replay raises; there is no
+    eager fallback on CUDA. Each captured kernel's wrapper counter grows
+    by its launches per round times the rounds replayed."""
+
+    def __init__(self, setup: Setup, spec: OutputSpec, decision: RoundDecision):
+        self.spec, self.decision, self.steps = spec, decision, setup.steps
+        nbr, deg, mir, prows, frows, pi = tree_clone(_setup_tensors(setup))
+        self.setup = dataclasses.replace(setup, neighbors=nbr, degrees=deg, mirror=mir,
+                                         prows=prows, frows=frows, pi=pi)
+        dev = nbr.device
+        self.state = None  # the static SimState, allocated at the first run
+        self.recorded = empty_recording(spec, int(prows.z0.shape[0]), self.steps,
+                                        setup.pcfg.max_walks, dev)
+        self.step = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.graph = None
+        self.capture_s = None  # host seconds of the warm-up and capture
+
+    @property
+    def captures(self) -> int:
+        """CUDA graphs captured: 1 once a CUDA run has captured, else 0."""
+        return int(self.graph is not None)
+
+    def _round(self) -> None:
+        """One round on the static buffers: the captured work."""
+        new, out = protocol_step(self.state, self.setup, self.decision)
+        for d, s in zip(tree_leaves(self.state), tree_leaves(new)):
+            d.copy_(s)  # the next state in place (a no-op where updated in place)
+        for buf, f in zip(self.recorded, self.spec.fields):
+            buf.index_copy_(1, self.step, getattr(out, f).unsqueeze(1))
+        self.step.add_(1)
+
+    def run(self, state: SimState, setup: Setup):
+        """``steps`` rounds from ``state`` under ``setup``'s values:
+        ``(final SimState, RecordedOutputs)``, as :func:`run_rounds`
+        gives them."""
+        copy_into(_setup_tensors(self.setup), _setup_tensors(setup))
+        if self.state is None:
+            self.state = tree_clone(state)
+        else:
+            copy_into(self.state, state)
+        self.step.zero_()
+        if not self.step.is_cuda:
+            for _ in range(self.steps):
+                self._round()
+        else:
+            if self.graph is None:
+                t0 = time.perf_counter()
+                # the warm-up runs a real round on a throwaway copy of the
+                # state, so the caller's trajectory does not advance
+                self.graph = Captured(
+                    self._round,
+                    warmup=lambda: protocol_step(tree_clone(self.state), self.setup,
+                                                 self.decision),
+                )
+                self.capture_s = time.perf_counter() - t0
+            self.graph.replay(self.steps)
+        rec = RecordedOutputs(self.spec.fields, tuple(b.clone() for b in self.recorded))
+        return tree_clone(self.state), rec
 
 
 # ---------------------------------------------------------------------------

@@ -97,7 +97,10 @@ def _scatter_drop(base: torch.Tensor, index: torch.Tensor, src) -> torch.Tensor:
     """``base.at[index].set(src, mode="drop")`` along the last axis, with
     index == base.shape[-1] meaning "dropped"."""
     wide = torch.cat([base, base[..., :1]], dim=-1)
-    src = torch.as_tensor(src, dtype=base.dtype, device=base.device)
+    if isinstance(src, torch.Tensor):
+        src = src.to(base.dtype)
+    else:  # filled on the device: no host-to-device copy, so it captures
+        src = torch.full((), src, dtype=base.dtype, device=base.device)
     wide.scatter_(-1, index.long(), src.expand(index.shape))
     return wide[..., :-1].contiguous()
 

@@ -3,7 +3,8 @@ of ``repro.launch.serve``).
 
 One ``decode_step`` per token over a batch of streams, greedy or
 temperature sampling, ring-buffer KV caches (sliding-window archs), and
-the EOS freeze with a periodic early exit.
+the EOS freeze with a periodic early exit. On the card the decode step
+and its sampling replay as one captured CUDA graph per token.
 
   from repro_torch.launch.serve import generate
   tokens, stats = generate(model, params, prompts, max_new_tokens=64)
@@ -20,8 +21,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.capture import Captured
 from repro_torch.models.model import Model
 from repro_torch.utils import prng
+from repro_torch.utils.tree import copy_into, tree_clone, tree_leaves
 
 
 def _sample(logits: torch.Tensor, key, temperature: float, partitionable: bool) -> torch.Tensor:
@@ -62,6 +65,117 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+class DecodeGraph:
+    """The decode loop of one signature: the decode step plus sampling
+    (greedy or temperature, the EOS freeze), over static tensors: the
+    cache, the current token, the sampling key, a device-side step
+    counter ``i``, the finished mask and the generated tokens. On CUDA
+    the step is captured once as a CUDA graph and replayed per token;
+    on the CPU it runs eagerly through the same buffers. The key of step
+    ``i`` is ``fold_in(key, i)`` with ``i`` read on the device, the same
+    key words as the eager loop's Python ``i``. The EOS check stays on
+    the host, between replays."""
+
+    def __init__(self, cache, max_new_tokens: int, temperature: float, eos_id: Optional[int],
+                 partitionable: bool):
+        self.temperature, self.eos_id, self.partitionable = temperature, eos_id, partitionable
+        self.max_new_tokens = max_new_tokens
+        dev = cache["next_pos"].device
+        B = cache["next_pos"].shape[0]
+        self.bufs = {
+            "cache": tree_clone(cache),
+            "tok": torch.empty((B, 1), dtype=torch.int32, device=dev),
+            "key": torch.empty((2,), dtype=torch.int64, device=dev),
+            "i": torch.zeros((), dtype=torch.int64, device=dev),
+            "finished": torch.zeros((B,), dtype=torch.bool, device=dev),
+            "gen": torch.zeros((B, max_new_tokens), dtype=torch.int32, device=dev),
+        }
+        self.graph = None
+        self.capture_s = None  # host seconds of the warm-up and capture
+
+    def _step(self, model: Model, params, b: dict) -> None:
+        """One token on the buffers ``b``: the captured work."""
+        logits, _ = model.decode_step(params, b["cache"], {"tokens": b["tok"]})
+        b["key"].copy_(prng.fold_in(b["key"], b["i"]))
+        nxt = _sample(logits, b["key"], self.temperature, self.partitionable).reshape(-1, 1)
+        if self.eos_id is not None:
+            b["finished"].logical_or_(b["tok"][:, 0] == self.eos_id)
+            nxt = torch.where(b["finished"][:, None], torch.full_like(nxt, self.eos_id), nxt)
+        b["tok"].copy_(nxt)
+        b["i"].add_(1)
+        b["gen"].index_copy_(1, b["i"].view(1), nxt)
+
+    def run(self, model: Model, params, cache, tok, key, eos_check_every: int):
+        """Decode from ``cache`` (updated in place only in the static
+        copy) with first token ``tok``; returns (the tokens so far,
+        (B, 1 + steps), a copy; steps). ``params`` must be the tensors of
+        the signature: a captured graph reads them at their addresses.
+        The runner keeps no reference to the model or its parameters, so
+        a model that holds it can be freed."""
+        b = self.bufs
+        copy_into(b["cache"], cache)
+        b["tok"].copy_(tok)
+        b["key"].copy_(key)
+        b["i"].zero_()
+        b["finished"].zero_()
+        b["gen"][:, :1].copy_(tok)
+        cuda = tok.is_cuda
+        if cuda and self.graph is None:
+            t0 = time.perf_counter()
+            # the warm-up decodes one token on throwaway copies
+            self.graph = Captured(lambda: self._step(model, params, b),
+                                  warmup=lambda: self._step(model, params, tree_clone(b)))
+            self.capture_s = time.perf_counter() - t0
+        steps = 0
+        for i in range(self.max_new_tokens - 1):
+            if (self.eos_id is not None and eos_check_every > 0 and i % eos_check_every == 0
+                    and bool(b["finished"].all())):
+                break  # every stream frozen: the rest would all be eos
+            if cuda:
+                self.graph.replay()
+            else:
+                self._step(model, params, b)
+            steps += 1
+        return b["gen"][:, :1 + steps].clone(), steps
+
+
+def _decode_signature(params, cache, max_new_tokens, temperature, eos_id, partitionable):
+    """What a captured decode loop depends on: the parameters' addresses,
+    shapes and dtypes (the graph reads them in place), the cache's
+    layout (batch, length), the tokens it writes and how it samples."""
+    weights = tuple((p.data_ptr(), tuple(p.shape), p.dtype) for p in params.parameters())
+    layout = tuple((tuple(t.shape), t.dtype, t.device) for t in tree_leaves(cache))
+    return (weights, layout, max_new_tokens, float(temperature), eos_id, partitionable)
+
+
+def _prefill(model, params, tokens, max_new_tokens, temperature, key, partitionable):
+    """The prefill (eager), the decode cache and the first token."""
+    dev = tokens.device
+    _sync(dev)
+    t0 = time.perf_counter()
+    last_logits, cache = model.prefill(params, {"tokens": tokens})
+    cache = expand_cache(model, cache, tokens.shape[1] + max_new_tokens + 1)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    tok = _sample(last_logits, key, temperature, partitionable).reshape(tokens.shape[0], 1)
+    return cache, tok, t_prefill
+
+
+def _finish(gen, decode_steps, t_prefill, t_decode, max_new_tokens, eos_id):
+    B = gen.shape[0]
+    if gen.shape[1] < max_new_tokens:  # early exit: pad the frozen tail
+        pad = torch.full((B, max_new_tokens - gen.shape[1]), eos_id, dtype=gen.dtype,
+                         device=gen.device)
+        gen = torch.cat([gen, pad], dim=1)
+    stats = {
+        "prefill_s": t_prefill,
+        "decode_s": t_decode,
+        "decode_steps": decode_steps,
+        "tokens_per_s": B * max(decode_steps, 1) / max(t_decode, 1e-9),
+    }
+    return gen, stats
+
+
 @torch.no_grad()
 def generate(
     model: Model,
@@ -84,22 +198,53 @@ def generate(
     ``eos_check_every`` steps, and the rest is padded with ``eos_id`` --
     what the full loop would have emitted. ``stats``: ``prefill_s``,
     ``decode_s`` (host clock after a device synchronize),
-    ``decode_steps`` (steps executed) and ``tokens_per_s``."""
+    ``decode_steps`` (steps executed) and ``tokens_per_s``.
+
+    The decode loop is the reference's jitted ``decode_step``: a
+    :class:`DecodeGraph` per signature, kept on the model, captured as a
+    CUDA graph at its first use and replayed per token (on the CPU it
+    runs eagerly through the same buffers). The prefill stays eager: it
+    is one call per request batch, about 2x its tensor-core bound at
+    yi-6b. :func:`generate_eager` is the same loop issued op by op."""
+    tokens = batch["tokens"]
+    if key is None:
+        key = prng.key(0, device=tokens.device)
+    cache, tok, t_prefill = _prefill(model, params, tokens, max_new_tokens, temperature, key,
+                                     partitionable)
+    sig = _decode_signature(params, cache, max_new_tokens, temperature, eos_id, partitionable)
+    runner = model.decode_graphs.get(sig)
+    if runner is None:
+        runner = model.decode_graphs[sig] = DecodeGraph(
+            cache, max_new_tokens, temperature, eos_id, partitionable)
+    t0 = time.perf_counter()
+    gen, decode_steps = runner.run(model, params, cache, tok, key, eos_check_every)
+    _sync(tokens.device)
+    t_decode = time.perf_counter() - t0
+    return _finish(gen, decode_steps, t_prefill, t_decode, max_new_tokens, eos_id)
+
+
+@torch.no_grad()
+def generate_eager(
+    model: Model,
+    params,
+    batch: dict,
+    max_new_tokens: int,
+    temperature: float = 0.0,
+    eos_id: Optional[int] = None,
+    key=None,
+    eos_check_every: int = 8,
+    *,
+    partitionable: bool = True,
+):
+    """:func:`generate` with every decode step issued op by op from
+    Python: the oracle the captured loop is held to (tokens equal)."""
     tokens = batch["tokens"]
     dev = tokens.device
     if key is None:
         key = prng.key(0, device=dev)
-    prompt_len = tokens.shape[1]
-
-    _sync(dev)
-    t0 = time.perf_counter()
-    last_logits, cache = model.prefill(params, batch)
-    cache = expand_cache(model, cache, prompt_len + max_new_tokens + 1)
-    _sync(dev)
-    t_prefill = time.perf_counter() - t0
-
+    cache, tok, t_prefill = _prefill(model, params, tokens, max_new_tokens, temperature, key,
+                                     partitionable)
     B = tokens.shape[0]
-    tok = _sample(last_logits, key, temperature, partitionable).reshape(B, 1)
     finished = torch.zeros((B,), dtype=torch.bool, device=dev)
     track_eos = eos_id is not None
     outs = [tok]
@@ -119,17 +264,8 @@ def generate(
         outs.append(tok)
     _sync(dev)
     t_decode = time.perf_counter() - t0
-    gen = torch.cat(outs, dim=1)
-    if gen.shape[1] < max_new_tokens:  # early exit: pad the frozen tail
-        pad = torch.full((B, max_new_tokens - gen.shape[1]), eos_id, dtype=gen.dtype, device=dev)
-        gen = torch.cat([gen, pad], dim=1)
-    stats = {
-        "prefill_s": t_prefill,
-        "decode_s": t_decode,
-        "decode_steps": decode_steps,
-        "tokens_per_s": B * max(decode_steps, 1) / max(t_decode, 1e-9),
-    }
-    return gen, stats
+    return _finish(torch.cat(outs, dim=1), decode_steps, t_prefill, t_decode, max_new_tokens,
+                   eos_id)
 
 
 def main(argv=None):

@@ -74,10 +74,23 @@ def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=device) / half))
 
 
+# (head_dim, theta, device) -> rope_frequencies: made once, so that a
+# decode step (captured or eager) issues no work to rebuild the constant
+_ROPE_FREQS: dict = {}
+
+
+def _cached_rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+    key = (head_dim, float(theta), torch.device(device))
+    freqs = _ROPE_FREQS.get(key)
+    if freqs is None:
+        freqs = _ROPE_FREQS[key] = rope_frequencies(head_dim, theta, device)
+    return freqs
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (B, S, H, D); positions: (B, S) int."""
     half = x.shape[-1] // 2
-    freqs = rope_frequencies(x.shape[-1], theta, x.device)  # (half,)
+    freqs = _cached_rope_frequencies(x.shape[-1], theta, x.device)  # (half,)
     ang = positions[..., None].float() * freqs  # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]

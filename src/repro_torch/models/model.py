@@ -77,6 +77,8 @@ class Model:
     def __init__(self, cfg: ModelConfig):
         check_ported(cfg)
         self.cfg = cfg
+        # launch.serve.generate's captured decode loops, one per signature
+        self.decode_graphs: Dict[tuple, Any] = {}
 
     # ------------------------------------------------------------------ init
     @torch.no_grad()
@@ -163,7 +165,9 @@ class Model:
     @torch.no_grad()
     def decode_step(self, params, cache, batch):
         """One-token decode. batch: {'tokens': (B, 1)}; returns (logits
-        (B, 1, V), cache), the cache updated in place."""
+        (B, 1, V), cache), the cache updated in place (``next_pos``
+        included). It issues no host synchronisation, so
+        ``launch.serve.generate`` captures it as a CUDA graph."""
         cfg = self.cfg
         pos = cache["next_pos"]  # (B,)
         h = embed_tokens(params, cfg, batch["tokens"])
@@ -177,7 +181,7 @@ class Model:
         layers = cache["layers"]
         for i, lp in enumerate(params.layers):
             h = block_apply_decode(lp, h, cfg, {k: t[i] for k, t in layers.items()}, pos_info)
-        cache["next_pos"] = pos + 1
+        pos.add_(1)  # in place: a captured step keeps its cache at fixed addresses
         return logits_from_h(params, cfg, h), cache
 
 

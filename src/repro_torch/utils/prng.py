@@ -164,9 +164,12 @@ def _uniform_range(keys, shape, minval: float, maxval: float, *, partitionable: 
 
 
 def _scale(f: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
-    lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=f.device)
-    return torch.maximum(lo, f * (hi - lo) + lo)
+    """The bounds are rounded to float32 and their difference taken in
+    float32 on the host (exact as Python floats), so no host-to-device
+    copy lies on a captured sampling step."""
+    lo = torch.tensor(minval, dtype=torch.float32)
+    span = float(torch.tensor(maxval, dtype=torch.float32) - lo)
+    return torch.clamp_min(f * span + float(lo), float(lo))
 
 
 # XLA's float32 erf_inv (``ErfInv32`` in xla/client/lib/math.cc): Giles'

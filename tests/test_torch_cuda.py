@@ -91,8 +91,24 @@ def test_cuda_observation_kernels_bitwise(cuda, batch, n, C, B, W):
     pytest.param(2, 2000, 1100, 1100, 64, 2, False, id="W1100"),  # more slots than threads
 ])
 def test_cuda_whole_round_bitwise(cuda, plus, batch, n, W, C, B, K, crowded):
-    rng = np.random.default_rng(n + plus)
-    g = make_graph("regular", n + n % 2, seed=0, degree=4)
+    _whole_round_case(cuda, plus, make_graph("regular", n + n % 2, seed=0, degree=4),
+                      batch, W, C, B, K, crowded, np.random.default_rng(n + plus))
+
+
+@pytest.mark.parametrize("plus", [False, True])
+@pytest.mark.parametrize("family,kw", [
+    pytest.param("complete", {}, id="complete-D99"),  # Fig. 6's complete graph: four chunks
+    pytest.param("erdos_renyi", dict(p=0.4), id="er-D54"),  # ragged rows of 29-54: two chunks
+])
+def test_cuda_whole_round_wide_rows_bitwise(cuda, plus, family, kw):
+    """Rows wider than 32 neighbours: the hop's chunk loop past the first
+    32 (``csrc/whole_round.cu::avail_bits``), at n 100."""
+    g = make_graph(family, 100, seed=0, **kw)
+    assert g.max_degree > 32
+    _whole_round_case(cuda, plus, g, 8, 64, 64, 1024, 2, False, np.random.default_rng(7 + plus))
+
+
+def _whole_round_case(cuda, plus, g, batch, W, C, B, K, crowded, rng):
     n, D = g.n, g.max_degree
     x = _observation(rng, batch, n, C, B, W, 70, cuda)
     if crowded:  # many slots share a row: theta is computed once per distinct row
@@ -243,3 +259,138 @@ def test_cuda_mixed_sweep_matches_cpu(cuda):
         for f in ("z", "forks", "terms", "failures", "fork_parent", "terminated"):
             assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), (s.name, f)
         torch.testing.assert_close(got.theta_mean.cpu(), want.theta_mean, rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# captured execution: rounds and decode replayed as CUDA graphs
+# ---------------------------------------------------------------------------
+
+CAPTURE_BASE = dict(z0=6, max_walks=16, rt_bins=64, protocol_start=10)
+
+
+def _capture_cases():
+    from repro_torch.core import FailureConfig, ProtocolConfig
+
+    fc = FailureConfig(burst_times=(15,), burst_sizes=(2,), p_fail=0.01, byzantine_node=2,
+                       p_byz=0.05, p_node_fail=0.02, p_node_recover=0.3, p_link_fail=0.02,
+                       p_link_recover=0.4, pacman_node=4, pacman_start_time=20)
+    return {
+        "fused": (ProtocolConfig(eps=2.0, estimator_impl="auto", **CAPTURE_BASE), fc,
+                  whole_round),
+        "missingperson": (ProtocolConfig("missingperson", eps_mp=12.0, **CAPTURE_BASE), fc,
+                          None),
+        "auto_eps": (ProtocolConfig("decafork+", eps=3.0, eps2=7.57, auto_eps=True,
+                                    estimator_impl="pallas", auto_min_samples=3,
+                                    **CAPTURE_BASE), fc, theta_sums),
+    }
+
+
+def _equal_trees(a, b, label):
+    from repro_torch.utils.tree import tree_leaves
+
+    a, b = tree_leaves(tuple(a)), tree_leaves(tuple(b))
+    assert len(a) == len(b) and a, label
+    for x, y in zip(a, b):
+        x, y = x.cpu(), y.cpu()
+        if x.dtype.is_floating_point:  # bitwise, theta_mean included
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), label
+
+
+@pytest.mark.parametrize("case", ["fused", "missingperson", "auto_eps"])
+def test_cuda_captured_run_is_the_eager_run(cuda, case):
+    """A captured run equals the eager loop bitwise (integers, final carry,
+    theta_mean), twice with other keys and thresholds through one
+    capture; the kernel's counter grows once per replayed round
+    (whole_round for the fused group, theta_sums for auto_eps, no kernel
+    for MissingPerson)."""
+    import dataclasses
+
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.outputs import FULL
+    from repro_torch.kernels import KERNELS
+    from repro_torch.utils import prng
+
+    pcfg, fcfg, kern = _capture_cases()[case]
+    g = make_graph("erdos_renyi", 24, seed=0)
+    steps, seeds = 37, 3
+    runner = None
+    for key, eps in ((0, pcfg.eps), (1, pcfg.eps + 0.5)):
+        p = dataclasses.replace(pcfg, eps=eps)
+        setup = sim.make_setup(g, [p] * seeds, [fcfg] * seeds, steps, cuda)
+        decision = sim.round_impl_decision(p, fcfg)
+        assert decision.fused == (case == "fused")
+        keys = prng.split(prng.key(key, device=cuda), seeds)
+        want = sim.run_rounds(sim.init_state(keys, setup), setup, steps, FULL, decision)
+        runner = runner or sim.RoundRunner(setup, FULL, decision)
+        before = {k.__name__: k.launches for k in KERNELS}
+        got = runner.run(sim.init_state(keys, setup), setup)
+        grew = {k.__name__: k.launches - before[k.__name__] for k in KERNELS}
+        assert grew == {k.__name__: (steps if k is kern else 0) for k in KERNELS}
+        _equal_trees(got[0], want[0], f"{case}: final carry")
+        _equal_trees(got[1], want[1], f"{case}: recorded outputs")
+    assert runner.captures == 1
+
+
+def test_cuda_second_run_captures_nothing_and_never_syncs(cuda):
+    """Through the Plan's cache: a re-run of one structure with new keys,
+    eps and a fresh Plan opens no slot and captures no graph, and its
+    replays issue no host synchronisation."""
+    import dataclasses
+
+    from repro_torch.api import Experiment, cache_stats
+    from repro_torch.api import plan as plan_mod
+    from repro_torch.core import simulator as sim
+    from repro_torch.utils import prng
+
+    pcfg, fcfg, _ = _capture_cases()["fused"]
+    g = make_graph("erdos_renyi", 24, seed=0)
+    plan_mod.clear_cache()
+    try:
+        Experiment(graph=g, protocol=pcfg, failures=fcfg, steps=37, device=cuda).ensemble(3)
+        st = cache_stats()
+        assert st["entries"] == 1 and st["graphs_captured"] == 1
+        exp = Experiment(graph=g, protocol=dataclasses.replace(pcfg, eps=2.6), failures=fcfg,
+                         steps=37, device=cuda)
+        exp.ensemble(3, base_key=5)
+        assert cache_stats() == st
+        plan = exp.plan()
+        setup = plan._setup(3)
+        (runner,) = plan_mod._EXECUTABLES.values()
+        state = sim.init_state(prng.split(prng.key(9, device=cuda), 3), setup)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            runner.run(state, setup)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert cache_stats() == st
+    finally:
+        plan_mod.clear_cache()
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "mamba2_1_3b"])
+def test_cuda_captured_decode_tokens_equal_eager(cuda, arch):
+    """The captured decode loop's tokens equal the eager loop's, greedy
+    and sampled with an EOS exit, and one signature captures once."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import generate, generate_eager
+    from repro_torch.models import Model
+    from repro_torch.utils import prng
+
+    cfg = get_smoke_config(arch, use_pallas=True, ssd_chunk=32)
+    model = Model(cfg)
+    params = model.init(prng.key(0), cuda)
+    toks = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 64)),
+                                      dtype=torch.int32, device=cuda)}
+    for _ in range(2):
+        got, stats = generate(model, params, toks, 8)
+        want, wstats = generate_eager(model, params, toks, 8)
+        assert torch.equal(got, want) and stats["decode_steps"] == wstats["decode_steps"] == 7
+    assert len(model.decode_graphs) == 1
+    kw = dict(temperature=0.8, key=prng.key(7, device=cuda))
+    sampled, _ = generate(model, params, toks, 10, **kw)
+    eos = int(sampled[0, 1])
+    got, stats = generate(model, params, toks, 10, eos_id=eos, eos_check_every=1, **kw)
+    want, wstats = generate_eager(model, params, toks, 10, eos_id=eos, eos_check_every=1, **kw)
+    assert torch.equal(got, want) and stats["decode_steps"] == wstats["decode_steps"]

@@ -47,7 +47,8 @@ def test_port_imports_without_jax():
         "import repro_torch.core.simulator, repro_torch.kernels.ops, repro_torch.data\n"
         "import repro_torch.models, repro_torch.launch.serve, repro_torch.configs\n"
         "import repro_torch.sweep, repro_torch.api.results, repro_torch.api.placement\n"
-        "import repro_torch.graphs.spectral\n"
+        "import repro_torch.graphs.spectral, repro_torch.kernels.capture\n"
+        "from repro_torch.api import cache_stats; from repro_torch.api.plan import executable\n"
         "from repro_torch.configs import ARCH_IDS, get_config\n"
         "[get_config(a) for a in ARCH_IDS + ('paper_rwsgd',)]\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
