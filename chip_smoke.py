@@ -41,25 +41,33 @@ Phases, each printed on its own line:
    5 and 6 walks at steps 2000 and 6000, decisions from step 1000; 9000
    steps unless ``--steps`` says otherwise) through
    ``repro_torch.api.Experiment`` on ``cuda``, captured: ms per round of
-   the replays, trajectory-rounds/s, capture seconds; the whole_round
-   launch count (counted per replay) must equal the rounds run, and Z_t
-   must survive near Z0. Then each ensemble's first 200 rounds through
-   the eager loop (``run_rounds``), timed and held bitwise to the
-   captured run, and a 50-round torch.profiler window of the captured
-   round: the device's busy share and its kernels per round. Around each
-   timed run nvidia-smi's SM clock, temperature and power are sampled;
+   the replays, trajectory-rounds/s, capture seconds; the captured
+   graph must hold one whole_round node (read from the graph), its
+   launches must equal the rounds run plus the capture's warm-up round,
+   and Z_t must survive near Z0. Then each ensemble's first 200 rounds
+   through the eager loop (``run_rounds``), timed and held bitwise to
+   the captured run, and a 50-round torch.profiler window of the
+   captured round: the device's busy share, its kernels per round, and
+   its whole_round launches, which must equal the rounds replayed and
+   the wrapper counter's growth (a window from which the profiler drops
+   a record repeats, up to three windows);
 4. cross-device parity: 160 rounds, 4 seeds, churny failures, on cuda and
    on the CPU; integer outputs bitwise, theta_mean within 1e-6;
 5. unfused paths, 160 rounds: ``round_impl="unfused"`` with
    ``estimator_impl`` = ``"fused"`` (round_update) and ``"pallas"``
-   (theta_sums), one launch per round; their integer outputs must equal
-   the fused round's. Then DecAFork+ with ``auto_eps`` through theta_sums
-   (one launch per round) and with the analytic survival (no kernel),
+   (theta_sums), one launch per round (and one in a capture's warm-up
+   round); their integer outputs must equal the fused round's. Then
+   DecAFork+ with ``auto_eps`` through theta_sums (the same count) and
+   with the analytic survival (no kernel),
    200 steps, 4 seeds, cuda against the CPU: integers bitwise,
    theta_mean within 1e-6. Then captured against eager at full width
    (200 steps, 50 seeds, decisions from step 50, churny failures) for a
    fused group (DecAFork+), MissingPerson and auto_eps: outputs, final
-   carry and theta_mean bitwise;
+   carry and theta_mean bitwise. Last, 8 captured rounds of each unfused
+   path (round_update, theta_sums, auto_eps, MissingPerson) under
+   torch.profiler: the device's launches of each kernel must equal one
+   per round of the path's kernel (none for MissingPerson) and the
+   counters' growth;
 6. serve: ``repro_torch.launch.serve.generate`` on cuda for yi-6b
    (batch 4, prompt 512, 32 new tokens), mamba2-1.3b (the same) and
    paper-rwsgd (batch 4, prompt 128, 16 new tokens), at their published
@@ -67,8 +75,9 @@ Phases, each printed on its own line:
    ``Model.init`` (seed 0), in the served dtype: a first generate
    captures the decode step, the second is timed (captured decode
    tokens/s), then ``generate_eager`` (eager tokens/s), whose tokens must
-   equal the captured ones; one eager decode step under torch.profiler
-   gives its kernels and busy share. Each prefill must launch its kernel
+   equal the captured ones; four eager decode steps, and the captured
+   loop's replays, under torch.profiler give their kernels per step and
+   busy share. Each prefill must launch its kernel
    once per layer (the plain path none). The gate runs the same weights
    in float32: the kernel path's last-position logits must match
    ``use_pallas=False`` (plain torch on the card) within
@@ -86,9 +95,10 @@ Phases, each printed on its own line:
    MissingPerson 50), each captured and timed as in phase 3 (ms per
    round, trajectory-rounds/s, the ratio to phase 3's DecAFork ensemble,
    capture seconds, an eager window held bitwise to it). The two
-   DecAFork groups must launch whole_round once per round and decide
-   fused, MissingPerson not at all (unfused, with the reference's
-   reason); every DecAFork / DecAFork+ scenario must survive near Z0.
+   DecAFork groups must decide fused, hold one whole_round node in their
+   captured round and launch it once per round (and once in the capture's
+   warm-up round); MissingPerson none at all (unfused, with the
+   reference's reason); every DecAFork / DecAFork+ scenario must survive near Z0.
    Then parity at full width for 200 steps with decisions from step 50:
    each scenario of a cuda sweep equals its own cuda ensemble bitwise,
    and a 4-seed mixed sweep (the three algorithms and ``none``, churny
@@ -159,51 +169,6 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-class GpuSampler:
-    """nvidia-smi's SM clock, temperature and power draw every 200 ms
-    while a timed run lasts (one subprocess, stopped on exit), and the
-    host's state beside it: live Python objects and the CUDA caching
-    allocator's segments. ``summary`` holds the medians (the clock's
-    minimum too)."""
-
-    QUERY = "clocks.sm,temperature.gpu,power.draw"
-
-    def __enter__(self):
-        import gc
-
-        import torch
-
-        self.proc = subprocess.Popen(
-            ["nvidia-smi", f"--query-gpu={self.QUERY}", "--format=csv,noheader,nounits",
-             "-lms", "200"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-        self.host = dict(gc_objects=len(gc.get_objects()),
-                         allocator_segments=torch.cuda.memory_stats().get("segment.all.current"),
-                         reserved_gib=torch.cuda.memory_reserved() / 2**30)
-        return self
-
-    def __exit__(self, *exc):
-        import numpy as np
-
-        self.proc.terminate()
-        try:
-            out, _ = self.proc.communicate(timeout=30)
-        except subprocess.TimeoutExpired:
-            self.proc.kill()
-            out, _ = self.proc.communicate()
-        rows = []
-        for ln in out.splitlines():
-            try:
-                rows.append([float(v) for v in ln.split(",")])
-            except ValueError:
-                continue
-        a = np.array(rows) if rows else np.zeros((0, 3))
-        med = lambda i: float(np.median(a[:, i])) if len(a) else None  # noqa: E731
-        self.summary = dict(samples=len(a), sm_clock_mhz=med(0),
-                            sm_clock_min_mhz=float(a[:, 0].min()) if len(a) else None,
-                            temperature_c=med(1), power_w=med(2), **self.host)
-        return False
 
 
 def cuda_ms(fn, reps: int, groups: int = 7, graph: bool = False) -> float:
@@ -630,8 +595,6 @@ def profile_decode(model, params, tokens, steps=4):
     step, their device ms per step and the busy share (kernel time over
     the profiled wall time)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.serve import expand_cache
 
@@ -640,21 +603,45 @@ def profile_decode(model, params, tokens, steps=4):
     tok = torch.argmax(last, dim=-1).to(torch.int32)
     logits, cache = model.decode_step(params, cache, {"tokens": tok})
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
+        nonlocal tok, cache
         for _ in range(steps):
             logits, cache = model.decode_step(params, cache, {"tokens": tok})
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    _seen, events, wall_us = device_launches(run)
+    return _busy(events, wall_us, steps)
+
+
+def _busy(events, wall_us, steps):
     busy = sum(e.self_device_time_total for e in events)
-    if not busy:
-        raise AssertionError("the profiler saw no device time in the eager decode step")
     return dict(steps=steps, kernels_per_step=sum(e.count for e in events) / steps,
                 kernel_ms_per_step=busy / steps / 1e3, wall_ms_per_step=wall_us / steps / 1e3,
                 busy_share=busy / wall_us)
+
+
+def profile_decode_captured(model, params, tokens, new):
+    """The captured decode loop under torch.profiler: a prefill (outside
+    the window) into the model's one ``DecodeGraph``, then its ``new`` - 1
+    replays, greedy. Kernels per step (the graph's nodes, attributed),
+    their device ms per step and the busy share over the replays' wall
+    time."""
+    import torch
+
+    from repro_torch.launch.serve import expand_cache
+    from repro_torch.utils import prng
+
+    (runner,) = model.decode_graphs.values()
+    last, cache = model.prefill(params, {"tokens": tokens})
+    expand_cache(model, cache, tokens.shape[1] + new + 1, out=runner.cache)
+    del cache
+    tok = torch.argmax(last, dim=-1).to(torch.int32).reshape(-1, 1)
+    key = prng.key(0, device=tokens.device)
+    _seen, events, wall_us = device_launches(lambda: runner.run(model, params, tok, key, 0))
+    out = _busy(events, wall_us, new - 1)
+    out["graph_kernel_nodes"] = runner.graph.kernel_nodes
+    return out
 
 
 def serve_models(dev):
@@ -715,6 +702,7 @@ def serve_models(dev):
         if not torch.equal(gen, eager_gen):
             raise AssertionError(f"{arch}: captured decode tokens differ from the eager loop's")
         decode_prof = profile_decode(model, params, toks)
+        captured_prof = profile_decode_captured(model, params, toks, new)
         last = prefill_launches(model, params, toks, kern, L, arch)
         plain_last = prefill_launches(plain, params, toks, kern, L, arch)
         if not (torch.isfinite(last).all() and torch.isfinite(plain_last).all()):
@@ -753,9 +741,6 @@ def serve_models(dev):
         exact_gap = ssd_in_f64_gap(model, params, toks, plain32) if cfg.arch_type == "ssm" else None
         prefill_ms = stats["prefill_s"] * 1e3
         step_ms = stats["decode_s"] * 1e3 / max(stats["decode_steps"], 1)
-        # the captured step runs the eager step's kernels: their device
-        # time over the captured step's wall time
-        captured_busy = decode_prof["kernel_ms_per_step"] / step_ms
         out = dict(arch=cfg.name, params=n_params, dtype=cfg.dtype, layers=L, batch=batch,
                    prompt=prompt, new_tokens=new, init_s=init_s, init_peak_bytes=init_peak,
                    serve_peak_bytes=serve_peak, prefill_ms=prefill_ms, decode_s=stats["decode_s"],
@@ -764,7 +749,7 @@ def serve_models(dev):
                    eager_decode_tokens_per_s=eager_stats["tokens_per_s"],
                    eager_decode_ms_per_step=eager_stats["decode_s"] * 1e3
                    / max(eager_stats["decode_steps"], 1),
-                   eager_step_profile=decode_prof, captured_busy_share_derived=captured_busy,
+                   eager_step_profile=decode_prof, captured_step_profile=captured_prof,
                    captured_tokens_equal_eager=True,
                    served_dtype_logit_gap=served_gap, served_dtype_logit_scale=served_scale,
                    f32_logits_max_abs_err=err, f32_logits_bound=bound, f32_logit_scale=scale,
@@ -780,7 +765,10 @@ def serve_models(dev):
             decode_capture_s=f"{decode_graph.capture_s:.3f}",
             eager_step_kernels=decode_prof["kernels_per_step"],
             eager_step_busy_share=f"{decode_prof['busy_share']:.4f}",
-            captured_busy_share_derived=f"{captured_busy:.4f}", tokens="captured == eager",
+            captured_step_kernels=captured_prof["kernels_per_step"],
+            captured_step_kernel_ms=f"{captured_prof['kernel_ms_per_step']:.4f}",
+            captured_step_busy_share=f"{captured_prof['busy_share']:.4f}",
+            tokens="captured == eager",
             served_logit_gap=f"{served_gap}/{served_scale}", f32_logits_max_abs_err=err,
             f32_bound=f"{bound:.3g}", f32_tokens_compared=compared, near_ties=ties,
             f32_err_with_ssd_block_in_f64=exact_gap,
@@ -825,9 +813,72 @@ def new_runner(slots):
     return runner
 
 
+def graph_launches(runner, what, per_round):
+    """The captured round's launches of each kernel, read from the graph's
+    kernel nodes (``Captured.per_replay``), must be ``per_round`` (kernel
+    name -> launches in one round)."""
+    got = {k.__name__: n for k, n in runner.graph.per_replay.items()}
+    if got != per_round:
+        raise AssertionError(f"{what}: the captured round holds {got}, expected {per_round}")
+
+
+def device_launches(fn):
+    """Kernel name -> launches of that kernel the device recorded
+    (torch.profiler's CUDA events, graph nodes included) while ``fn``
+    ran; and all the CUDA events."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import KERNELS
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise AssertionError("the profiler saw no device kernel (graph nodes not attributed)")
+    counts = {}
+    for k in KERNELS:
+        pat = re.compile("|".join(rf"\b{s}\b" for s in k.symbols))
+        counts[k.__name__] = sum(e.count for e in events if pat.search(e.key))
+    return counts, events, wall_us
+
+
+def gated_device_launches(fn, want, what, tries=3):
+    """:func:`device_launches` of ``fn``, held to ``want`` (kernel name ->
+    launches): the wrappers' counters must grow by exactly ``want`` in
+    every window, and the profiler must count ``want``. The profiler
+    can drop activity records under load (CUPTI's buffers), and a
+    dropped record is a launch it did not see, so a window whose count
+    falls short repeats, up to ``tries`` windows; the short windows'
+    counts are returned beside the result."""
+    from repro_torch.kernels import KERNELS
+
+    short = []
+    for _ in range(tries):
+        before = {k.__name__: k.launches for k in KERNELS}
+        seen, events, wall_us = device_launches(fn)
+        grew = {k.__name__: k.launches - before[k.__name__] for k in KERNELS}
+        if grew != want:
+            raise AssertionError(f"{what}: the counters grew by {grew}, expected {want}")
+        if seen == want:
+            return seen, events, wall_us, short
+        short.append({k: v for k, v in seen.items() if v != want[k]})
+    raise AssertionError(f"{what}: the device launched {short} in {tries} windows, "
+                         f"expected {want}")
+
+
 def main_path(graph, steps, seeds, kernel_device_ms):
     """Phase 3: the ensembles through ``Experiment.ensemble``, each round a
-    replay of one captured round (its capture timed apart)."""
+    replay of one captured round (its capture timed apart). whole_round's
+    launches: one in the capture's warm-up round, then one per replayed
+    round (the captured graph's whole_round nodes, once per replay)."""
     import numpy as np
     import torch
 
@@ -843,17 +894,18 @@ def main_path(graph, steps, seeds, kernel_device_ms):
         slots = set(plan_mod._EXECUTABLES)
         torch.cuda.synchronize()
         before = whole_round.launches
-        with GpuSampler() as gpu:
-            t0 = time.perf_counter()
-            outs = exp.ensemble(seeds)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs = exp.ensemble(seeds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
         runner = new_runner(slots)
         if runner.captures != 1:
             raise AssertionError(f"{alg}: the ensemble's rounds were not one captured graph")
+        graph_launches(runner, alg, {"whole_round": 1})
         launches = whole_round.launches - before
-        if launches != steps:
-            raise AssertionError(f"whole_round launched {launches} times for {steps} rounds")
+        if launches != steps + 1:
+            raise AssertionError(f"whole_round launched {launches} times for {steps} rounds "
+                                 "and the capture's warm-up round")
         z = outs.z.cpu().numpy()
         if z.shape != (seeds, steps):
             raise AssertionError(f"z has shape {z.shape}")
@@ -867,59 +919,46 @@ def main_path(graph, steps, seeds, kernel_device_ms):
             raise AssertionError(f"{alg}: non-finite theta_mean")
         replay_s = wall - runner.capture_s
         ms_round = replay_s * 1e3 / steps
-        share = launches * kernel_device_ms / (replay_s * 1e3)
+        share = steps * kernel_device_ms / (replay_s * 1e3)
         res[alg] = dict(steps=steps, seeds=seeds, wall_s=wall, capture_s=runner.capture_s,
                         ms_per_round=ms_round,
                         trajectory_rounds_per_s=seeds * steps / replay_s,
                         whole_round_share=share, survival=alive, mean_z_after_start=mean_z,
                         max_z=int(z.max()), min_z_after_start=int(post.min()),
                         forks=int(outs.forks.sum()), terms=int(outs.terms.sum()),
-                        whole_round_launches=launches, gpu=gpu.summary,
+                        whole_round_launches=launches, graph_kernel_nodes=runner.graph.kernel_nodes,
                         head=outs.map(lambda v: v[:, :EAGER_WINDOW]))
         log("main", alg=alg, steps=steps, seeds=seeds, wall_s=f"{wall:.3f}",
             capture_s=f"{runner.capture_s:.3f}", captured_ms_per_round=f"{ms_round:.4f}",
             trajectory_rounds_per_s=f"{seeds * steps / replay_s:.1f}",
             whole_round_share=f"{share:.4f}", survival=alive, mean_z=f"{mean_z:.3f}",
-            whole_round_launches=launches, gpu=gpu.summary)
+            whole_round_launches=f"{launches}(1 warm-up + {steps} replays x 1 graph node)",
+            graph_kernel_nodes=runner.graph.kernel_nodes)
     return res
 
 
 def eager_window(label, setup, keys, spec, decision, head, rounds=None):
     """The same run's first ``rounds`` rounds through the eager loop
     (``run_rounds``): their ms per round, and their outputs against the
-    captured run's (``head``), integers and theta_mean bitwise; then the
-    same window again with Python's cyclic garbage collector off (its ms
-    per round: what the collector costs the host's launch loop)."""
-    import gc
-
+    captured run's (``head``), integers and theta_mean bitwise."""
     import torch
 
     from repro_torch.core import simulator as sim
 
     rounds = rounds or head.z.shape[-1]
-
-    def timed():
-        state = sim.init_state(keys, setup)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _final, rec = sim.run_rounds(state, setup, rounds, spec, decision)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / rounds, rec
-
-    with GpuSampler() as gpu:
-        ms, rec = timed()
+    state = sim.init_state(keys, setup)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _final, rec = sim.run_rounds(state, setup, rounds, spec, decision)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / rounds
     for f in rec._fields:
         got, want = getattr(rec, f).cpu(), getattr(head, f).reshape(getattr(rec, f).shape).cpu()
         if got.dtype.is_floating_point:
             got, want = got.view(torch.int32), want.view(torch.int32)
         if not torch.equal(got, want):
             raise AssertionError(f"{label}: the eager loop's {f} differs from the captured run's")
-    gc.disable()
-    try:
-        gpu.summary["eager_ms_per_round_gc_off"] = timed()[0]
-    finally:
-        gc.enable()
-    return ms, gpu.summary
+    return ms
 
 
 def main_eager_windows(graph, seeds, main_res):
@@ -930,29 +969,29 @@ def main_eager_windows(graph, seeds, main_res):
     for alg, r in main_res.items():
         plan = main_experiment(graph, alg, r["steps"]).plan()
         keys = prng.split(prng.key(0, device="cuda"), seeds)
-        ms, gpu = eager_window(f"phase 3 {alg}", plan._setup(seeds), keys, plan.spec,
-                               plan.decision, r.pop("head"))
-        r.update(eager_ms_per_round=ms, captured_speedup=ms / r["ms_per_round"], eager_gpu=gpu)
+        ms = eager_window(f"phase 3 {alg}", plan._setup(seeds), keys, plan.spec,
+                          plan.decision, r.pop("head"))
+        r.update(eager_ms_per_round=ms, captured_speedup=ms / r["ms_per_round"])
         log("main", alg=alg, eager_rounds=EAGER_WINDOW, eager_ms_per_round=f"{ms:.4f}",
-            eager_ms_per_round_gc_off=f"{gpu['eager_ms_per_round_gc_off']:.4f}",
             captured_ms_per_round=f"{r['ms_per_round']:.4f}",
             captured_speedup=f"{ms / r['ms_per_round']:.2f}",
-            outputs="eager window bitwise the captured run", gpu=gpu)
+            outputs="eager window bitwise the captured run")
 
 
 def profile_rounds(graph, seeds, rounds=PROFILE_ROUNDS):
     """The captured round under torch.profiler: ``rounds`` replays of the
-    main path's round after its capture. Busy share: the CUDA kernels'
-    device time over the profiled wall time (all kernels, and
-    whole_round alone); kernels per round from the same events. Beside
-    it, CUDA events around the same replays without the profiler give
-    the device's ms per round."""
+    main path's round after its capture. The device's whole_round
+    launches must equal the replayed rounds and the wrapper counter's
+    growth (:func:`gated_device_launches`). Busy share: the CUDA kernels' device time over the profiled
+    wall time (all kernels, and whole_round alone); kernels per round
+    from the same events, beside the graph's kernel nodes. Beside it,
+    CUDA events around the same replays without the profiler give the
+    device's ms per round."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import simulator as sim
     from repro_torch.core.outputs import SCALARS
+    from repro_torch.kernels import KERNELS
     from repro_torch.utils import prng
 
     res = {}
@@ -970,26 +1009,66 @@ def profile_rounds(graph, seeds, rounds=PROFILE_ROUNDS):
         b.record()
         b.synchronize()
         event_ms = a.elapsed_time(b) / rounds
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            runner.run(state, setup)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        want = {k.__name__: rounds if k.__name__ == "whole_round" else 0 for k in KERNELS}
+        seen, events, wall_us, short = gated_device_launches(
+            lambda: runner.run(state, setup), want, alg)
         busy = sum(e.self_device_time_total for e in events)
         wr = sum(e.self_device_time_total for e in events if "whole_round" in e.key)
         launches = sum(e.count for e in events)
         out = dict(rounds=rounds, captured=True, event_ms_per_round=event_ms,
                    profiled_wall_ms_per_round=wall_us / rounds / 1e3,
-                   graph_nodes_attributed=bool(busy),
-                   device_busy_share=busy / wall_us if busy else None,
-                   whole_round_share=wr / wall_us if busy else None,
-                   device_kernels_per_round=launches / rounds if busy else None,
-                   device_kernel_ms_per_round=busy / rounds / 1e3 if busy else None)
-        log("profile", alg=alg,
-            **{k: ("not measured (graph nodes not attributed)" if v is None else v)
-               for k, v in out.items()})
+                   device_busy_share=busy / wall_us, whole_round_share=wr / wall_us,
+                   device_kernels_per_round=launches / rounds,
+                   graph_kernel_nodes=runner.graph.kernel_nodes,
+                   device_kernel_ms_per_round=busy / rounds / 1e3,
+                   whole_round_device_launches=seen["whole_round"],
+                   short_windows=short)
+        log("profile", alg=alg, **out)
         res[alg] = out
+    return res
+
+
+def phase5_device_launches(graph):
+    """Phase 5's captured unfused rounds under torch.profiler (8 rounds
+    each, 50 seeds): the device's launches of each kernel must equal one
+    per round of the path's kernel (round_update for
+    ``estimator_impl="fused"``, theta_sums for ``"pallas"`` and
+    ``auto_eps``, none for MissingPerson) and the counters' growth
+    (:func:`gated_device_launches`)."""
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.outputs import SCALARS
+    from repro_torch.kernels import KERNELS
+    from repro_torch.utils import prng
+
+    rounds, seeds = 8, PAPER["seeds"]
+    fail = dict(burst_times=(100, 150), burst_sizes=PAPER["burst_sizes"])
+    cases = (
+        ("unfused fused-estimator", "decafork", dict(estimator_impl="fused"), "round_update"),
+        ("unfused pallas", "decafork", dict(estimator_impl="pallas"), "theta_sums"),
+        ("auto_eps", "decafork+", dict(auto_eps=True, estimator_impl="pallas",
+                                      auto_min_samples=5), "theta_sums"),
+        ("missingperson", "missingperson", dict(eps_mp=50.0), None),
+    )
+    res = {}
+    for label, alg, kw, kern in cases:
+        plan = experiment(graph, alg, rounds, "cuda", protocol_start=2, failures=fail,
+                          round_impl="unfused", **kw).plan()
+        if plan.decision.fused:
+            raise AssertionError(f"{label} took the fused round")
+        setup = plan._setup(seeds)
+        state = sim.init_state(prng.split(prng.key(0, device="cuda"), seeds), setup)
+        runner = sim.RoundRunner(setup, SCALARS, plan.decision)
+        runner.run(state, setup)  # captures
+        graph_launches(runner, label, {kern: 1} if kern else {})
+        want = {k.__name__: rounds if k.__name__ == kern else 0 for k in KERNELS}
+        seen, events, _, short = gated_device_launches(
+            lambda: runner.run(state, setup), want, label)
+        res[label] = dict(rounds=rounds, seeds=seeds, device_launches=seen, short_windows=short,
+                          graph_kernel_nodes=runner.graph.kernel_nodes,
+                          device_kernels_per_round=sum(e.count for e in events) / rounds)
+        log("unfused", device_launches=label, rounds=rounds, seeds=seeds,
+            **{k: v for k, v in seen.items() if v}, counters="equal", short_windows=short,
+            graph_kernel_nodes=runner.graph.kernel_nodes)
     return res
 
 
@@ -1026,6 +1105,7 @@ def cross_device(graph):
 def unfused_paths(graph, counts):
     import torch
 
+    from repro_torch.api import cache_stats
     from repro_torch.kernels import round_update, theta_sums
 
     steps, seeds = 160, PAPER["seeds"]  # both bursts (100, 150) fire
@@ -1037,13 +1117,17 @@ def unfused_paths(graph, counts):
         for eimpl, kern in (("fused", round_update), ("pallas", theta_sums)):
             torch.cuda.synchronize()
             kern.launches = 0
+            captured = cache_stats()["graphs_captured"]
             t0 = time.perf_counter()
             outs = experiment(graph, alg, steps, "cuda", estimator_impl=eimpl,
                               round_impl="unfused", **kw).ensemble(seeds)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            if kern.launches != steps:
-                raise AssertionError(f"{kern.__name__} launched {kern.launches} times")
+            # one launch per round, and one in each new capture's warm-up round
+            want = steps + cache_stats()["graphs_captured"] - captured
+            if kern.launches != want:
+                raise AssertionError(f"{kern.__name__} launched {kern.launches} times, "
+                                     f"expected {want}")
             counts[kern.__name__] += kern.launches
             int_outputs_equal(outs, fused, f"unfused {eimpl} {alg}")
             res[f"{alg}/{eimpl}"] = dict(steps=steps, seeds=seeds, wall_s=wall,
@@ -1062,6 +1146,7 @@ def estimator_modes(graph, counts):
     import numpy as np
     import torch
 
+    from repro_torch.api import cache_stats
     from repro_torch.kernels import KERNELS, theta_sums
 
     steps, seeds = 200, 4
@@ -1080,6 +1165,7 @@ def estimator_modes(graph, counts):
                 raise AssertionError(f"{label} took the fused round")
             for k in KERNELS:
                 k.launches = 0
+            captured = cache_stats()["graphs_captured"]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             outs[dev] = exp.ensemble(seeds)
@@ -1087,7 +1173,9 @@ def estimator_modes(graph, counts):
             walls[dev] = time.perf_counter() - t0
             if dev == "cuda":
                 launched = {k.__name__: k.launches for k in KERNELS if k.launches}
-        want = {kern.__name__: steps} if kern is not None else {}
+                warmups = cache_stats()["graphs_captured"] - captured
+        # one launch per round, and one in each new capture's warm-up round
+        want = {kern.__name__: steps + warmups} if kern is not None else {}
         if launched != want:
             raise AssertionError(f"{label}: kernel launches {launched}, expected {want}")
         for name, n in launched.items():
@@ -1221,14 +1309,15 @@ def sweep_phase(graph, steps, seeds, phase3):
         slots = set(plan_mod._EXECUTABLES)
         torch.cuda.synchronize()
         before = whole_round.launches
-        with GpuSampler() as gpu:
-            t0 = time.perf_counter()
-            out = stacked(scenarios, **kw)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = stacked(scenarios, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
         runner = new_runner(slots)
         if runner.captures != 1:
             raise AssertionError(f"group {[s.name for s in scenarios]}: not one captured graph")
+        fused = scenarios[0].pcfg.algorithm != "missingperson"
+        graph_launches(runner, scenarios[0].name, {"whole_round": 1} if fused else {})
         runners.append((runner, out.map(lambda v: v[:, :, :EAGER_WINDOW])))
         replay_s = wall - runner.capture_s
         rows = len(scenarios) * seeds
@@ -1237,7 +1326,8 @@ def sweep_phase(graph, steps, seeds, phase3):
                            wall_s=wall, capture_s=runner.capture_s,
                            ms_per_round=replay_s * 1e3 / steps,
                            trajectory_rounds_per_s=rows * steps / replay_s,
-                           whole_round_launches=whole_round.launches - before, gpu=gpu.summary))
+                           whole_round_launches=whole_round.launches - before,
+                           graph_kernel_nodes=runner.graph.kernel_nodes))
         return out
 
     plan.sweep_stacked = timed
@@ -1248,7 +1338,8 @@ def sweep_phase(graph, steps, seeds, phase3):
     base = phase3["decafork"]["trajectory_rounds_per_s"]
     keys = prng.split(prng.key(0, device="cuda"), seeds)
     for g, (runner, head) in zip(groups, runners):
-        want = 0 if g["algorithm"] == "missingperson" else steps
+        # one per round and one in the capture's warm-up round
+        want = 0 if g["algorithm"] == "missingperson" else steps + 1
         if g["whole_round_launches"] != want:
             raise AssertionError(f"group {g['scenarios']}: whole_round launched "
                                  f"{g['whole_round_launches']} times, expected {want}")
@@ -1256,19 +1347,18 @@ def sweep_phase(graph, steps, seeds, phase3):
         # the group's first rounds through the eager loop, from the same
         # rows (the runner's static setup holds the group's values)
         S = len(g["scenarios"])
-        eager, eager_gpu = eager_window(f"phase 7 {g['scenarios']}", runner.setup,
-                                        keys.repeat(S, 1), runner.spec, runner.decision, head)
-        g.update(eager_ms_per_round=eager, captured_speedup=eager / g["ms_per_round"],
-                 eager_gpu=eager_gpu)
+        eager = eager_window(f"phase 7 {g['scenarios']}", runner.setup, keys.repeat(S, 1),
+                             runner.spec, runner.decision, head)
+        g.update(eager_ms_per_round=eager, captured_speedup=eager / g["ms_per_round"])
         log("sweep", group=repr(",".join(g["scenarios"])), rows=g["rows"], steps=steps,
             wall_s=f"{g['wall_s']:.3f}", capture_s=f"{g['capture_s']:.3f}",
             captured_ms_per_round=f"{g['ms_per_round']:.4f}",
             trajectory_rounds_per_s=f"{g['trajectory_rounds_per_s']:.1f}",
             vs_phase3_decafork=f"{g['vs_phase3_decafork']:.3f}",
             eager_ms_per_round=f"{eager:.4f}",
-            eager_ms_per_round_gc_off=f"{eager_gpu['eager_ms_per_round_gc_off']:.4f}",
             captured_speedup=f"{eager / g['ms_per_round']:.2f}",
-            whole_round_launches=g["whole_round_launches"], gpu=g["gpu"], eager_gpu=eager_gpu)
+            whole_round_launches=g["whole_round_launches"],
+            graph_kernel_nodes=g["graph_kernel_nodes"])
     start = min(PAPER["protocol_start"], steps - 1)
     burst = PAPER["bursts"][0]
     per = {}
@@ -1415,6 +1505,8 @@ def main() -> int:
     lap("5 unfused paths")
     unfused.update(estimator_modes(graph, counts))
     lap("5 estimator modes")
+    unfused["device_launches"] = phase5_device_launches(graph)
+    lap("5 device launches")
     captured = captured_vs_eager(graph)
     lap("5 captured vs eager")
     serve, serve_counts = serve_models("cuda")

@@ -483,6 +483,9 @@ def _setup_tensors(setup: Setup) -> tuple:
     return (setup.neighbors, setup.degrees, setup.mirror, setup.prows, setup.frows, setup.pi)
 
 
+RECORD_CHUNK = 256  # rounds a runner records in place between copies out
+
+
 class RoundRunner:
     """``setup.steps`` rounds of one static structure (Setup shapes and
     static protocol fields, RoundDecision, OutputSpec, batch), run as the
@@ -491,16 +494,20 @@ class RoundRunner:
     on the CPU the same round runs eagerly through the same buffers.
 
     The runner owns static inputs: the ``SimState`` fields, the Setup's
-    tensors (graph, protocol and failure rows) and the recorded
-    (batch, steps, ...) buffers. A run copies the caller's state and
-    setup values into them, so re-running with new keys, thresholds,
-    rates or schedules captures nothing new. The captured round ends by
-    copying the next state into the static state and writing each
-    recorded field at a device-side step index, so the round index never
-    passes through Python. Results are copies: a later run does not
-    overwrite them. A failed capture or replay raises; there is no
-    eager fallback on CUDA. Each captured kernel's wrapper counter grows
-    by its launches per round times the rounds replayed."""
+    tensors (graph, protocol and failure rows) and recording buffers of
+    ``RECORD_CHUNK`` rounds. A run copies the caller's state and setup
+    values into them, so re-running with new keys, thresholds, rates or
+    schedules captures nothing new. The captured round ends by copying
+    the next state into the static state and writing each recorded field
+    at a device-side column of the chunk, so the round index never passes
+    through Python; after each chunk the run copies it into that run's
+    own (batch, steps, ...) outputs. What a runner keeps between runs is
+    therefore independent of ``steps``, and results never alias its
+    buffers. A failed capture or replay raises; there is no eager
+    fallback on CUDA. The capture's warm-up runs one real round on a
+    throwaway copy of the state (its kernel launches count); each replay
+    adds the captured graph's kernel nodes to their wrappers' counters
+    (``kernels.capture.Captured``)."""
 
     def __init__(self, setup: Setup, spec: OutputSpec, decision: RoundDecision):
         self.spec, self.decision, self.steps = spec, decision, setup.steps
@@ -509,9 +516,10 @@ class RoundRunner:
                                          prows=prows, frows=frows, pi=pi)
         dev = nbr.device
         self.state = None  # the static SimState, allocated at the first run
-        self.recorded = empty_recording(spec, int(prows.z0.shape[0]), self.steps,
-                                        setup.pcfg.max_walks, dev)
-        self.step = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.batch, self.walks = int(prows.z0.shape[0]), setup.pcfg.max_walks
+        self.chunk = max(1, min(RECORD_CHUNK, self.steps))
+        self.recorded = empty_recording(spec, self.batch, self.chunk, self.walks, dev)
+        self.column = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.graph = None
         self.capture_s = None  # host seconds of the warm-up and capture
 
@@ -526,8 +534,8 @@ class RoundRunner:
         for d, s in zip(tree_leaves(self.state), tree_leaves(new)):
             d.copy_(s)  # the next state in place (a no-op where updated in place)
         for buf, f in zip(self.recorded, self.spec.fields):
-            buf.index_copy_(1, self.step, getattr(out, f).unsqueeze(1))
-        self.step.add_(1)
+            buf.index_copy_(1, self.column, getattr(out, f).unsqueeze(1))
+        self.column.add_(1)
 
     def run(self, state: SimState, setup: Setup):
         """``steps`` rounds from ``state`` under ``setup``'s values:
@@ -538,24 +546,28 @@ class RoundRunner:
             self.state = tree_clone(state)
         else:
             copy_into(self.state, state)
-        self.step.zero_()
-        if not self.step.is_cuda:
-            for _ in range(self.steps):
-                self._round()
-        else:
-            if self.graph is None:
-                t0 = time.perf_counter()
-                # the warm-up runs a real round on a throwaway copy of the
-                # state, so the caller's trajectory does not advance
-                self.graph = Captured(
-                    self._round,
-                    warmup=lambda: protocol_step(tree_clone(self.state), self.setup,
-                                                 self.decision),
-                )
-                self.capture_s = time.perf_counter() - t0
-            self.graph.replay(self.steps)
-        rec = RecordedOutputs(self.spec.fields, tuple(b.clone() for b in self.recorded))
-        return tree_clone(self.state), rec
+        cuda = self.column.is_cuda
+        if cuda and self.graph is None:
+            t0 = time.perf_counter()
+            # the warm-up runs a real round on a throwaway copy of the
+            # state, so the caller's trajectory does not advance
+            self.graph = Captured(
+                self._round,
+                warmup=lambda: protocol_step(tree_clone(self.state), self.setup, self.decision),
+            )
+            self.capture_s = time.perf_counter() - t0
+        outs = empty_recording(self.spec, self.batch, self.steps, self.walks, self.column.device)
+        for start in range(0, self.steps, self.chunk):
+            rounds = min(self.chunk, self.steps - start)
+            self.column.zero_()
+            if cuda:
+                self.graph.replay(rounds)
+            else:
+                for _ in range(rounds):
+                    self._round()
+            for o, b in zip(outs, self.recorded):
+                o[:, start:start + rounds].copy_(b[:, :rounds])
+        return tree_clone(self.state), RecordedOutputs(self.spec.fields, outs)
 
 
 # ---------------------------------------------------------------------------

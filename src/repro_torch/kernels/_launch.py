@@ -33,6 +33,15 @@ def arg(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> int:
     return t.data_ptr()
 
 
+def count_launch(wrapper) -> None:
+    """One more launch of ``wrapper``'s kernel, counted where it launches.
+    A call under CUDA-graph capture records the kernel into the graph and
+    launches nothing; the graph's replays count its kernel nodes instead
+    (``capture.Captured``)."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1
+
+
 def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 

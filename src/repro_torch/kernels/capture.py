@@ -1,20 +1,115 @@
 """Capture work that launches the port's kernels as one CUDA graph.
 
 A replay runs the captured kernels without the wrappers' Python, so the
-wrappers' ``launches`` counters (``repro_torch.kernels.KERNELS``) would
-count the capture and not the launches on the device. :class:`Captured`
-keeps them meaning "launches on the device": it records each counter's
-increase during capture, takes that and the warm-up's launches back out,
-and adds (increase x replays) after every replay.
+wrappers' ``launches`` counters (``repro_torch.kernels.KERNELS``) are
+counted from the graph itself: at capture, libcuda lists the
+graph's kernel nodes and names each node's device function; every
+wrapper's nodes (its ``symbols``) are its launches per replay, and each
+replay adds them. A call under capture launches nothing and counts
+nothing (``_launch.count_launch``); the warm-up before the capture runs
+real launches, and they count.
 
-Failure is loud: a capture or replay that CUDA refuses raises, and
-nothing here falls back to running the work eagerly.
+Failure is loud: a capture, a libcuda query or a replay that CUDA refuses
+raises, and nothing here falls back to running the work eagerly.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import KERNELS
+
+_KERNEL_NODE = 0  # CU_GRAPH_NODE_TYPE_KERNEL
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2`` of ``cuda.h`` (CUDA 12)."""
+
+    _fields_ = [
+        ("func", ctypes.c_void_p),
+        ("grid", ctypes.c_uint * 3),
+        ("block", ctypes.c_uint * 3),
+        ("shared_mem_bytes", ctypes.c_uint),
+        ("kernel_params", ctypes.c_void_p),
+        ("extra", ctypes.c_void_p),
+        ("kern", ctypes.c_void_p),
+        ("ctx", ctypes.c_void_p),
+    ]
+
+
+_libcuda = None
+
+
+def _cuda():
+    """libcuda (loaded by torch already) with the
+    signatures used here."""
+    global _libcuda
+    if _libcuda is None:
+        cu = ctypes.CDLL("libcuda.so.1")
+        vp, ptr = ctypes.c_void_p, ctypes.POINTER
+        sigs = {
+            "cuGraphGetNodes": [vp, vp, ptr(ctypes.c_size_t)],
+            "cuGraphNodeGetType": [vp, ptr(ctypes.c_int)],
+            "cuGraphKernelNodeGetParams_v2": [vp, ptr(_KernelNodeParams)],
+            "cuFuncGetName": [ptr(ctypes.c_char_p), vp],
+            "cuKernelGetName": [ptr(ctypes.c_char_p), vp],
+        }
+        for name, args in sigs.items():
+            fn = getattr(cu, name)
+            fn.argtypes, fn.restype = args, ctypes.c_int
+        _libcuda = cu
+    return _libcuda
+
+
+def _check(status: int, call: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{call} failed (CUresult {status})")
+
+
+def kernel_node_names(raw_graph: int) -> list:
+    """The device function name (as compiled, e.g. mangled) of every
+    kernel node of a CUDA graph (a ``cudaGraph_t``), read from
+    libcuda."""
+    cu = _cuda()
+    graph = ctypes.c_void_p(raw_graph)
+    count = ctypes.c_size_t(0)
+    _check(cu.cuGraphGetNodes(graph, None, ctypes.byref(count)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    _check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(count)), "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        _check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != _KERNEL_NODE:
+            continue
+        params = _KernelNodeParams()
+        _check(cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(params)),
+               "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if params.func:
+            _check(cu.cuFuncGetName(ctypes.byref(name), params.func), "cuFuncGetName")
+        else:
+            _check(cu.cuKernelGetName(ctypes.byref(name), params.kern), "cuKernelGetName")
+        names.append(name.value.decode())
+    return names
+
+
+def runs_symbol(name: str, symbol: str) -> bool:
+    """Whether device function ``name`` (as compiled: C++ names are
+    mangled, ``_Z18whole_round_kernel5Round``) is ``symbol``."""
+    return name == symbol or f"{len(symbol)}{symbol}" in name
+
+
+def launches_per_replay(names) -> dict:
+    """Kernel wrapper -> its kernel's nodes among ``names``, for every
+    wrapper that has one."""
+    out = {}
+    for k in KERNELS:
+        n = sum(any(runs_symbol(name, s) for s in k.symbols) for name in names)
+        if n:
+            out[k] = n
+    return out
 
 
 class Captured:
@@ -23,26 +118,23 @@ class Captured:
     ``warmup`` runs first, eagerly, on the stream the capture then uses
     (libraries initialise and kernels load outside the capture); it must
     leave the buffers ``fn`` reads as they were, e.g. by working on
-    clones."""
+    clones. ``kernel_nodes`` is the graph's kernel count and
+    ``per_replay`` each wrapper's launches in one replay, both read from
+    the captured graph."""
 
     def __init__(self, fn, warmup):
-        before = [k.launches for k in KERNELS]
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
-        try:
-            with torch.cuda.stream(stream):
-                warmup()
-            mid = [k.launches for k in KERNELS]
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, stream=stream):
-                fn()
-            after = [k.launches for k in KERNELS]
-        finally:
-            for k, n in zip(KERNELS, before):
-                k.launches = n
+        with torch.cuda.stream(stream):
+            warmup()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(self.graph, stream=stream):
+            fn()
         torch.cuda.current_stream().wait_stream(stream)
-        # kernel wrapper -> launches in one replay
-        self.per_replay = {k: a - m for k, m, a in zip(KERNELS, mid, after) if a != m}
+        names = kernel_node_names(self.graph.raw_cuda_graph())
+        self.kernel_nodes = len(names)
+        self.per_replay = launches_per_replay(names)
+        self.graph.instantiate()
 
     def replay(self, times: int = 1) -> None:
         for _ in range(times):

@@ -21,7 +21,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import I, P, arg, on_cpu, stream
+from repro_torch.kernels._launch import I, P, arg, count_launch, on_cpu, stream
 
 BLOCK = 128  # the reference kernel's default q and kv blocks: S must divide by min(BLOCK, S)
 HEAD_DIMS = (32, 64, 128, 256)  # the head dims the kernel is built for
@@ -84,8 +84,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window
     status = fn(*ptrs, out.data_ptr(), B, S, H, KV, D, int(window), int(bf16),
                 1.0 / math.sqrt(D), stream())
     _build.check(status, "flash_attention")
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return out
 
 
 flash_attention.launches = 0
+# its kernel's device function: bf16 (flash_attention_sm90.cu), f32
+flash_attention.symbols = ("flash_sm90_kernel", "flash_kernel")

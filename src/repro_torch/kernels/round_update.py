@@ -33,7 +33,7 @@ from repro_torch.core import protocol as prt
 from repro_torch.core import walkers as wlk
 from repro_torch.graphs.state import availability_rows
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import I, P, arg, check_aligned, on_cpu, stream
+from repro_torch.kernels._launch import I, P, arg, check_aligned, count_launch, on_cpu, stream
 
 NEVER = est.NEVER
 
@@ -81,11 +81,12 @@ def round_update(last_seen, hist, total, pos, track, r, valid, upd, t):
     fn.restype = I
     status = fn(*ptrs, sums.data_ptr(), batch, n, C, B, W, stream())
     _build.check(status, "round_update")
-    round_update.launches += 1
+    count_launch(round_update)
     return last_seen, hist, total, sums
 
 
 round_update.launches = 0
+round_update.symbols = ("round_update_kernel",)  # its kernel's device function
 
 
 # ---------------------------------------------------------------------------
@@ -224,8 +225,9 @@ def whole_round(
         batch, n, C, B, D, W, K, int(decafork_plus), stream(),
     )
     _build.check(status, "whole_round")
-    whole_round.launches += 1
+    count_launch(whole_round)
     return (last_seen, hist, total) + outs
 
 
 whole_round.launches = 0
+whole_round.symbols = ("whole_round_kernel",)  # its kernel's device function

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import I, P, arg, on_cpu, stream
+from repro_torch.kernels._launch import I, P, arg, count_launch, on_cpu, stream
 
 MAX_HEAD_DIM = 128  # P the CUDA kernel takes
 TILE = 64  # the bf16 kernel's query / time tile
@@ -83,8 +83,10 @@ def ssd_intra_chunk(x, da_cs, b_in, c_in):
     status = fn(*ptrs, y.data_ptr(), st.data_ptr(), scores.data_ptr(), B * nc, Q, H, Pd, N,
                 int(bf16), stream())
     _build.check(status, "ssd_intra_chunk")
-    ssd_intra_chunk.launches += 1
+    count_launch(ssd_intra_chunk)
     return y, st
 
 
 ssd_intra_chunk.launches = 0
+# the device function that runs once per call, in either library
+ssd_intra_chunk.symbols = ("scores_kernel",)

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.core.estimator import survival_node_sums_rows
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import I, P, arg, on_cpu, stream
+from repro_torch.kernels._launch import I, P, arg, count_launch, on_cpu, stream
 
 
 def theta_sums_plain(last_seen, hist, total, t) -> torch.Tensor:
@@ -49,8 +49,9 @@ def theta_sums(last_seen, hist, total, t) -> torch.Tensor:
     fn.restype = I
     status = fn(*ptrs, out.data_ptr(), batch, n, C, B, stream())
     _build.check(status, "theta_sums")
-    theta_sums.launches += 1
+    count_launch(theta_sums)
     return out
 
 
 theta_sums.launches = 0
+theta_sums.symbols = ("theta_sums_kernel",)  # its kernel's device function

@@ -24,7 +24,7 @@ import torch
 from repro_torch.kernels.capture import Captured
 from repro_torch.models.model import Model
 from repro_torch.utils import prng
-from repro_torch.utils.tree import copy_into, tree_clone, tree_leaves
+from repro_torch.utils.tree import tree_clone, tree_leaves
 
 
 def _sample(logits: torch.Tensor, key, temperature: float, partitionable: bool) -> torch.Tensor:
@@ -34,29 +34,37 @@ def _sample(logits: torch.Tensor, key, temperature: float, partitionable: bool) 
     return prng.categorical(key, logits / temperature, partitionable=partitionable).to(torch.int32)
 
 
-def expand_cache(model: Model, cache, total_len: int):
-    """Re-home a prefill cache into a decode cache with headroom.
+def expand_cache(model: Model, cache, total_len: int, out=None):
+    """Re-home a prefill cache into a decode cache with headroom: into
+    ``out`` (a decode cache of this batch and length, e.g. a
+    :class:`DecodeGraph`'s static one, overwritten) or a new one.
 
-    Each layer tensor is copied into the front of the new one when the
-    new one is at least as long; otherwise the new one stays zero and
-    only the first positions are kept (the reference's rule, also for a
-    sliding window shorter than the prompt)."""
+    Each layer tensor is copied into the front of the decode one when the
+    decode one is at least as long; otherwise the decode one stays zero
+    and only the first positions are kept (the reference's rule, also for
+    a sliding window shorter than the prompt)."""
     B = cache["next_pos"].shape[0]
-    out = model.init_cache(B, total_len, device=cache["next_pos"].device)
+    if out is None:
+        out = model.init_cache(B, total_len, device=cache["next_pos"].device)
+    else:  # as init_cache leaves a new one
+        for t in out["layers"].values():
+            t.zero_()
+        if "cache_positions" in out:
+            out["cache_positions"].fill_(-1)
     for name, src in cache["layers"].items():
         dst = out["layers"][name]
         if dst.shape == src.shape:
-            out["layers"][name] = src
+            dst.copy_(src)
         elif dst.dim() == src.dim() and dst.shape[:2] == src.shape[:2] and dst.shape[2] >= src.shape[2]:
-            dst[:, :, :src.shape[2]] = src
+            dst[:, :, :src.shape[2]].copy_(src)
     if "cache_positions" in cache:
         P = cache["cache_positions"].shape[1]
         T = out["cache_positions"].shape[1]
         if T >= P:
             out["cache_positions"][:, :P] = cache["cache_positions"]
         else:
-            out["cache_positions"] = cache["cache_positions"][:, :T].clone()
-    out["next_pos"] = cache["next_pos"]
+            out["cache_positions"].copy_(cache["cache_positions"][:, :T])
+    out["next_pos"].copy_(cache["next_pos"])
     return out
 
 
@@ -65,10 +73,14 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+DECODE_GRAPHS = 4  # decode loops a model keeps, least recently used dropped first
+
+
 class DecodeGraph:
     """The decode loop of one signature: the decode step plus sampling
     (greedy or temperature, the EOS freeze), over static tensors: the
-    cache, the current token, the sampling key, a device-side step
+    decode cache (``cache``, which :func:`expand_cache` fills from each
+    prefill), the current token, the sampling key, a device-side step
     counter ``i``, the finished mask and the generated tokens. On CUDA
     the step is captured once as a CUDA graph and replayed per token;
     on the CPU it runs eagerly through the same buffers. The key of step
@@ -76,19 +88,20 @@ class DecodeGraph:
     key words as the eager loop's Python ``i``. The EOS check stays on
     the host, between replays."""
 
-    def __init__(self, cache, max_new_tokens: int, temperature: float, eos_id: Optional[int],
+    def __init__(self, model: Model, batch_size: int, total_len: int, device,
+                 max_new_tokens: int, temperature: float, eos_id: Optional[int],
                  partitionable: bool):
         self.temperature, self.eos_id, self.partitionable = temperature, eos_id, partitionable
         self.max_new_tokens = max_new_tokens
-        dev = cache["next_pos"].device
-        B = cache["next_pos"].shape[0]
+        B = batch_size
+        self.cache = model.init_cache(B, total_len, device=device)
         self.bufs = {
-            "cache": tree_clone(cache),
-            "tok": torch.empty((B, 1), dtype=torch.int32, device=dev),
-            "key": torch.empty((2,), dtype=torch.int64, device=dev),
-            "i": torch.zeros((), dtype=torch.int64, device=dev),
-            "finished": torch.zeros((B,), dtype=torch.bool, device=dev),
-            "gen": torch.zeros((B, max_new_tokens), dtype=torch.int32, device=dev),
+            "cache": self.cache,
+            "tok": torch.empty((B, 1), dtype=torch.int32, device=device),
+            "key": torch.empty((2,), dtype=torch.int64, device=device),
+            "i": torch.zeros((), dtype=torch.int64, device=device),
+            "finished": torch.zeros((B,), dtype=torch.bool, device=device),
+            "gen": torch.zeros((B, max_new_tokens), dtype=torch.int32, device=device),
         }
         self.graph = None
         self.capture_s = None  # host seconds of the warm-up and capture
@@ -105,15 +118,14 @@ class DecodeGraph:
         b["i"].add_(1)
         b["gen"].index_copy_(1, b["i"].view(1), nxt)
 
-    def run(self, model: Model, params, cache, tok, key, eos_check_every: int):
-        """Decode from ``cache`` (updated in place only in the static
-        copy) with first token ``tok``; returns (the tokens so far,
+    def run(self, model: Model, params, tok, key, eos_check_every: int):
+        """Decode from ``cache`` (filled by :func:`expand_cache`, updated in
+        place) with first token ``tok``; returns (the tokens so far,
         (B, 1 + steps), a copy; steps). ``params`` must be the tensors of
         the signature: a captured graph reads them at their addresses.
         The runner keeps no reference to the model or its parameters, so
         a model that holds it can be freed."""
         b = self.bufs
-        copy_into(b["cache"], cache)
         b["tok"].copy_(tok)
         b["key"].copy_(key)
         b["i"].zero_()
@@ -139,17 +151,33 @@ class DecodeGraph:
         return b["gen"][:, :1 + steps].clone(), steps
 
 
-def _decode_signature(params, cache, max_new_tokens, temperature, eos_id, partitionable):
+def _decode_signature(params, cache, total_len, max_new_tokens, temperature, eos_id,
+                      partitionable):
     """What a captured decode loop depends on: the parameters' addresses,
-    shapes and dtypes (the graph reads them in place), the cache's
-    layout (batch, length), the tokens it writes and how it samples."""
+    shapes and dtypes (the graph reads them in place), the prefill
+    cache's layout and the decode cache's length, the tokens it writes
+    and how it samples."""
     weights = tuple((p.data_ptr(), tuple(p.shape), p.dtype) for p in params.parameters())
     layout = tuple((tuple(t.shape), t.dtype, t.device) for t in tree_leaves(cache))
-    return (weights, layout, max_new_tokens, float(temperature), eos_id, partitionable)
+    return (weights, layout, total_len, max_new_tokens, float(temperature), eos_id,
+            partitionable)
+
+
+def _decode_graph(model: Model, sig: tuple, make) -> DecodeGraph:
+    """The model's decode loop for ``sig``, made by ``make()`` on a miss;
+    the model keeps the ``DECODE_GRAPHS`` most recently used."""
+    graphs = model.decode_graphs
+    runner = graphs.pop(sig, None)
+    if runner is None:
+        while len(graphs) >= DECODE_GRAPHS:
+            graphs.pop(next(iter(graphs)))
+        runner = make()
+    graphs[sig] = runner
+    return runner
 
 
 def _prefill(model, params, tokens, max_new_tokens, temperature, key, partitionable):
-    """The prefill (eager), the decode cache and the first token."""
+    """The prefill (eager), a new decode cache and the first token."""
     dev = tokens.device
     _sync(dev)
     t0 = time.perf_counter()
@@ -201,24 +229,33 @@ def generate(
     ``decode_steps`` (steps executed) and ``tokens_per_s``.
 
     The decode loop is the reference's jitted ``decode_step``: a
-    :class:`DecodeGraph` per signature, kept on the model, captured as a
-    CUDA graph at its first use and replayed per token (on the CPU it
-    runs eagerly through the same buffers). The prefill stays eager: it
+    :class:`DecodeGraph` per signature (the model keeps the
+    ``DECODE_GRAPHS`` most recently used), captured as a CUDA graph at
+    its first use and replayed per token (on the CPU it runs eagerly
+    through the same buffers); each prefill's cache is written straight
+    into its static decode cache. The prefill stays eager: it
     is one call per request batch, about 2x its tensor-core bound at
     yi-6b. :func:`generate_eager` is the same loop issued op by op."""
     tokens = batch["tokens"]
+    dev = tokens.device
     if key is None:
-        key = prng.key(0, device=tokens.device)
-    cache, tok, t_prefill = _prefill(model, params, tokens, max_new_tokens, temperature, key,
-                                     partitionable)
-    sig = _decode_signature(params, cache, max_new_tokens, temperature, eos_id, partitionable)
-    runner = model.decode_graphs.get(sig)
-    if runner is None:
-        runner = model.decode_graphs[sig] = DecodeGraph(
-            cache, max_new_tokens, temperature, eos_id, partitionable)
+        key = prng.key(0, device=dev)
+    B, total = tokens.shape[0], tokens.shape[1] + max_new_tokens + 1
+    _sync(dev)
     t0 = time.perf_counter()
-    gen, decode_steps = runner.run(model, params, cache, tok, key, eos_check_every)
-    _sync(tokens.device)
+    last_logits, cache = model.prefill(params, {"tokens": tokens})
+    sig = _decode_signature(params, cache, total, max_new_tokens, temperature, eos_id,
+                            partitionable)
+    runner = _decode_graph(model, sig, lambda: DecodeGraph(
+        model, B, total, dev, max_new_tokens, temperature, eos_id, partitionable))
+    expand_cache(model, cache, total, out=runner.cache)  # the prefill, straight into it
+    del cache
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    tok = _sample(last_logits, key, temperature, partitionable).reshape(B, 1)
+    t0 = time.perf_counter()
+    gen, decode_steps = runner.run(model, params, tok, key, eos_check_every)
+    _sync(dev)
     t_decode = time.perf_counter() - t0
     return _finish(gen, decode_steps, t_prefill, t_decode, max_new_tokens, eos_id)
 

@@ -78,6 +78,7 @@ class Model:
         check_ported(cfg)
         self.cfg = cfg
         # launch.serve.generate's captured decode loops, one per signature
+        # (the most recently used few, launch.serve.DECODE_GRAPHS)
         self.decode_graphs: Dict[tuple, Any] = {}
 
     # ------------------------------------------------------------------ init

@@ -10,9 +10,13 @@ static buffers.
     one per group; ``cache_stats`` has its documented shape;
   - a runner's run equals ``simulator.run_rounds`` bitwise, outputs and
     final carry, for a fused group, MissingPerson and ``auto_eps``, at a
-    step count that is not a round number, and its results do not alias
-    the buffers a later run overwrites;
-  - the decode loop through ``DecodeGraph`` equals the eager loop.
+    step count that is not a round number, also when it records in
+    chunks that do not divide it, and its results do not alias the
+    buffers a later run overwrites;
+  - a captured graph's kernel nodes count as launches of the wrapper
+    whose device function they run;
+  - the decode loop through ``DecodeGraph`` equals the eager loop, and a
+    model keeps only its most recently used decode loops.
 
 n = 24, W = 16, B = 64, 37 steps, 3 seeds; no JAX.
 """
@@ -239,3 +243,71 @@ def test_decode_graph_is_the_eager_loop(arch):
         assert torch.equal(got, want)
         assert stats["decode_steps"] == wstats["decode_steps"]
         assert stats.keys() == wstats.keys()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_runner_records_in_chunks(graph, case, monkeypatch):
+    """With a recording chunk that does not divide the run (8 rounds for
+    37), a runner keeps chunk-sized buffers only and its run still equals
+    ``run_rounds`` bitwise."""
+    monkeypatch.setattr(sim, "RECORD_CHUNK", 8)
+    pcfg, fcfg = CASES[case]
+    plan = _exp(graph, pcfg, fcfg, outputs="full").plan()
+    setup = plan._setup(SEEDS)
+    runner = sim.RoundRunner(setup, FULL, plan.decision)
+    assert all(b.shape[:2] == (SEEDS, 8) for b in runner.recorded)
+    keys = prng.split(prng.key(1), SEEDS)
+    want = sim.run_rounds(sim.init_state(keys, setup), setup, STEPS, FULL, plan.decision)
+    got = runner.run(sim.init_state(keys, setup), setup)
+    assert _same(tuple(got[0]), tuple(want[0])) and _same(got[1], want[1])
+    assert got[1].z.shape == (SEEDS, STEPS)
+
+
+def test_launches_per_replay_reads_device_function_names():
+    """A captured graph's kernel nodes count as launches of the wrapper
+    whose device function they run (C++ names as compiled, mangled, or
+    plain for ``extern "C"``), one per node; other kernels count for no
+    wrapper."""
+    from repro_torch.kernels import flash_attention, ssd_intra_chunk, theta_sums, whole_round
+    from repro_torch.kernels.capture import launches_per_replay, runs_symbol
+
+    names = (["_Z18whole_round_kernel5Round"]
+             + ["_ZN2at6native29vectorized_elementwise_kernelILi4ENS0_11FillFunctorIiEE"] * 3
+             + ["_Z12flash_kernelILi32EEvPKfS1_S1_Pfiiiiiif",
+                "_Z17flash_sm90_kernelILi128EEv14CUtensorMap_stS0_S0_P13__nv_bfloat16iiiif",
+                "_Z13scores_kernelPK13__nv_bfloat16S1_Pfii", "theta_sums_kernel",
+                "_Z19my_scores_kernel_v2Pf"])
+    assert launches_per_replay(names) == {whole_round: 1, flash_attention: 2,
+                                          ssd_intra_chunk: 1, theta_sums: 1}
+    assert launches_per_replay(names[1:4]) == {}
+    assert not runs_symbol("_Z19whole_round_kernel2v", "whole_round_kernel")
+
+
+def test_decode_graphs_keep_the_most_recent():
+    """A model keeps ``DECODE_GRAPHS`` decode loops, dropping the least
+    recently used; a kept loop decodes another prompt of its shape as the
+    eager loop does (its static cache refilled by each prefill)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+
+    cfg = get_smoke_config("yi_6b")
+    model = Model(cfg)
+    params = model.init(prng.key(0), "cpu")
+    rng = np.random.default_rng(2)
+
+    def toks():
+        return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 12)),
+                                          dtype=torch.int32)}
+
+    first = toks()
+    serve.generate(model, params, first, 3)
+    for new in range(4, 4 + serve.DECODE_GRAPHS):
+        serve.generate(model, params, toks(), new)
+    assert len(model.decode_graphs) == serve.DECODE_GRAPHS
+    assert [s[3] for s in model.decode_graphs] == list(range(4, 4 + serve.DECODE_GRAPHS))
+    for batch in (first, toks()):  # a recent loop, another prompt
+        got, _ = serve.generate(model, params, batch, 5)
+        want, _ = serve.generate_eager(model, params, batch, 5)
+        assert torch.equal(got, want)
+    assert list(model.decode_graphs)[-1][3] == 5

@@ -232,6 +232,7 @@ def test_cuda_mixed_sweep_matches_cpu(cuda):
     integer outputs; the DecAFork group's rounds launch whole_round once
     each, for both of its scenarios' rows at once."""
     from repro_torch.api import Experiment
+    from repro_torch.api import plan as plan_mod
     from repro_torch.core import FailureConfig, ProtocolConfig
     from repro_torch.sweep import Scenario
 
@@ -248,12 +249,16 @@ def test_cuda_mixed_sweep_matches_cpu(cuda):
     ]
     g = make_graph("regular", 40, seed=0, degree=4)
     runs = {}
-    for dev in ("cpu", cuda):
-        exp = Experiment(graph=g, scenarios=scen, steps=steps, outputs="full", device=dev)
-        before = whole_round.launches
-        runs[str(dev)] = exp.sweep(seeds=3)
-        launches = whole_round.launches - before
-    assert launches == 2 * steps  # the DecAFork and DecAFork+ groups
+    plan_mod.clear_cache()  # each group captures here, its warm-up one real round
+    try:
+        for dev in ("cpu", cuda):
+            exp = Experiment(graph=g, scenarios=scen, steps=steps, outputs="full", device=dev)
+            before = whole_round.launches
+            runs[str(dev)] = exp.sweep(seeds=3)
+            launches = whole_round.launches - before
+    finally:
+        plan_mod.clear_cache()
+    assert launches == 2 * (steps + 1)  # the DecAFork and DecAFork+ groups
     for s in scen:
         got, want = runs["cuda"][s.name], runs["cpu"][s.name]
         for f in ("z", "forks", "terms", "failures", "fork_parent", "terminated"):
@@ -297,13 +302,38 @@ def _equal_trees(a, b, label):
         assert torch.equal(x, y), label
 
 
+def _device_launches(fn):
+    """Kernel wrapper name -> launches of its kernel that the device
+    recorded (torch.profiler's CUDA events) while ``fn`` ran."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import KERNELS
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert events, "the profiler saw no device kernel"
+    out = {}
+    for k in KERNELS:
+        pat = re.compile("|".join(rf"\b{s}\b" for s in k.symbols))
+        out[k.__name__] = sum(e.count for e in events if pat.search(e.key))
+    return out
+
+
 @pytest.mark.parametrize("case", ["fused", "missingperson", "auto_eps"])
 def test_cuda_captured_run_is_the_eager_run(cuda, case):
     """A captured run equals the eager loop bitwise (integers, final carry,
     theta_mean), twice with other keys and thresholds through one
-    capture; the kernel's counter grows once per replayed round
+    capture. The captured graph holds the kernel once per round
     (whole_round for the fused group, theta_sums for auto_eps, no kernel
-    for MissingPerson)."""
+    for MissingPerson); its counter grows by the replayed rounds, plus
+    the capture's one warm-up round, and the device records as many
+    launches as the counter adds per replayed round."""
     import dataclasses
 
     from repro_torch.core import simulator as sim
@@ -323,13 +353,23 @@ def test_cuda_captured_run_is_the_eager_run(cuda, case):
         keys = prng.split(prng.key(key, device=cuda), seeds)
         want = sim.run_rounds(sim.init_state(keys, setup), setup, steps, FULL, decision)
         runner = runner or sim.RoundRunner(setup, FULL, decision)
+        warmup = int(runner.graph is None)  # the capture's one real round
         before = {k.__name__: k.launches for k in KERNELS}
         got = runner.run(sim.init_state(keys, setup), setup)
         grew = {k.__name__: k.launches - before[k.__name__] for k in KERNELS}
-        assert grew == {k.__name__: (steps if k is kern else 0) for k in KERNELS}
+        assert grew == {k.__name__: (steps + warmup if k is kern else 0) for k in KERNELS}
         _equal_trees(got[0], want[0], f"{case}: final carry")
         _equal_trees(got[1], want[1], f"{case}: recorded outputs")
     assert runner.captures == 1
+    assert runner.graph.per_replay == ({kern: 1} if kern is not None else {})
+    want = {k.__name__: (steps if k is kern else 0) for k in KERNELS}
+    for _ in range(3):  # the profiler can drop records under load: a short window repeats
+        before = {k.__name__: k.launches for k in KERNELS}
+        seen = _device_launches(lambda: runner.run(sim.init_state(keys, setup), setup))
+        assert {k.__name__: k.launches - before[k.__name__] for k in KERNELS} == want
+        if seen == want:
+            break
+    assert seen == want
 
 
 def test_cuda_second_run_captures_nothing_and_never_syncs(cuda):
