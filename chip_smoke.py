@@ -24,17 +24,20 @@ Phases, each printed on its own line:
    also at phase 7's 200 rows; round_update / theta_sums also at
    n = 100,000, batch 1); flash_attention at yi-6b's prefill (batch 4,
    S 512, H 32, KV 4, D 128, bf16, tolerance 3e-2; the same batch and S
-   at D 64 and D 256), paper-rwsgd's (S 128, H 8, KV 4, D 32, f32, 2e-4)
-   and a windowed shape (window 96, S 256, bf16); ssd_intra_chunk at
-   mamba2-1.3b's (batch 4, 2 chunks of 256, H 64, P 64, N 128, 3e-4)
-   with bf16 B / C (the served dtype, the row; tensor cores) and with
-   f32 B / C (the float32 gate's; exact float32 on the CUDA cores).
+   at D 64 and D 256), paper-rwsgd's (S 128, H 8, KV 4, D 32, f32, 2e-4),
+   yi-6b's float32 gate's (its prefill's shape in f32, 2e-4) and a
+   windowed shape (window 96, S 256, bf16); ssd_intra_chunk at
+   mamba2-1.3b's (batch 4, 2 chunks of 256, H 64, P 64, N 128) with bf16
+   B / C (the served dtype, the row; tensor cores; 3e-4) and with f32 B /
+   C (the float32 gate's; exact float32 on the CUDA cores, which must be
+   bitwise its plain version).
    Median times by CUDA events: each kernel's from Python (``ms``: eager,
    the wrapper's host cost included, as since the first slice) and on the
    device alone (``device_ms``: the same calls replayed as a CUDA graph),
    the plain version's time (eager), the bound (the larger of the bytes
-   over 3.35 TB/s and the operations over the rate for their type and
-   unit) and, for attention, one ``scaled_dot_product_attention`` call on
+   over 3.35 TB/s and the operations over the rate of the unit that runs
+   them: the tensor cores' for the bf16 kernels, the CUDA cores' 67
+   TFLOP/s for the f32 ones) and, for attention, one ``scaled_dot_product_attention`` call on
    the same inputs (``library_ms`` eager, ``library_device_ms`` graph);
 3. main path: the paper's DecAFork and DecAFork+ ensembles (regular
    graph n = 100, d = 8; Z0 = 10, W = 64, B = 1024, 50 seeds, bursts of
@@ -86,7 +89,8 @@ Phases, each printed on its own line:
    exceeds that bound; the served dtype's gap is recorded, and for the
    SSM model the float32 gap with the intra-chunk block computed in
    float64 (how far an exact block lands from the plain path's float32
-   rounding);
+   rounding). The float32 kernel path's prefill ms (``f32_prefill_ms``)
+   is read from the gate's generate;
 7. sweep: Fig. 1's three curves (MissingPerson eps_mp 400, DecAFork eps
    2.0, DecAFork+) and Fig. 5's DecAFork eps grid (1.8, 2.0, 2.25, 2.5)
    as one ``Experiment(scenarios=...).sweep(seeds=50)`` on cuda, in the
@@ -446,6 +450,7 @@ def check_model_kernels(rng, dev):
     for label, (B, S, H, KV, D, window, dt) in (
         ("yi-6b prefill", (4, 512, 32, 4, 128, 0, "bfloat16")),
         ("paper-rwsgd prefill", (4, 128, 8, 4, 32, 0, "float32")),
+        ("yi-6b float32 gate", (4, 512, 32, 4, 128, 0, "float32")),
         ("window 96", (4, 256, 32, 4, 128, 96, "bfloat16")),
         ("D 64", (4, 512, 32, 4, 64, 0, "bfloat16")),
         ("D 256", (4, 512, 32, 4, 256, 0, "bfloat16")),
@@ -466,7 +471,8 @@ def check_model_kernels(rng, dev):
         valid = (i[None, :] <= i[:, None]) & ((i[None, :] > i[:, None] - window) if window else True)
         flops = 4 * D * int(valid.sum()) * B * H  # Q.K^T and P.V over the valid pairs
         nbytes = (2 * B * S * H * D + 2 * B * S * KV * D) * q.element_size()
-        bound, by = tc_bound(nbytes, flops, dt)
+        # bf16 runs on the tensor cores; f32 stays exact on the CUDA cores
+        bound, by = tc_bound(nbytes, flops, dt) if dt == "bfloat16" else core_bound(nbytes, flops)
         shape = f"B={B},S={S},H={H},KV={KV},D={D},window={window},{dt}"
         log("kernels", kernel="flash_attention", case=repr(label), shape=shape, max_abs_err=err,
             tol=tol, ms=f"{ms:.6f}", device_ms=f"{device_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
@@ -494,10 +500,13 @@ def check_model_kernels(rng, dev):
         bd, cd = b.to(getattr(torch, dt)), c.to(getattr(torch, dt))
         got = ssd_intra_chunk(x, da, bd, cd)
         want = ssd_intra_chunk_plain(x, da, bd, cd)
-        err = 0.0
-        for g, w in zip(got, want):
-            torch.testing.assert_close(g, w, rtol=3e-4, atol=3e-4)
-            err = max(err, float((g - w).abs().max()))
+        if dt == "float32":  # the float32 gate needs the plain version's rounding: bitwise
+            err, tol = max_abs_err(got, want), 0.0
+        else:
+            err, tol = 0.0, 3e-4
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+                err = max(err, float((g - w).abs().max()))
         ms = cuda_ms(lambda: ssd_intra_chunk(x, da, bd, cd), 20)
         device_ms = cuda_ms(lambda: ssd_intra_chunk(x, da, bd, cd), 20, graph=True)
         plain_ms = cuda_ms(lambda: ssd_intra_chunk_plain(x, da, bd, cd), 3, 3)
@@ -508,7 +517,7 @@ def check_model_kernels(rng, dev):
         bound, by = (tc_bound(nbytes, flops, "float32") if dt == "bfloat16"
                      else core_bound(nbytes, flops))
         shape = f"B={B},nc={nc},Q={Q},H={H},P={P},N={N},x f32,B/C {dt}"
-        log("kernels", kernel="ssd_intra_chunk", shape=shape, max_abs_err=err, tol=3e-4,
+        log("kernels", kernel="ssd_intra_chunk", shape=shape, max_abs_err=err, tol=tol,
             ms=f"{ms:.6f}", device_ms=f"{device_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
             bound_ms=f"{bound:.6f}", bound_by=by, bytes=nbytes, flops=flops)
         src = "ssd_intra_chunk_sm90.cu" if dt == "bfloat16" else "ssd_intra_chunk.cu"
@@ -516,7 +525,7 @@ def check_model_kernels(rng, dev):
             name="ssd_intra_chunk", route="cuda", source=f"src/repro_torch/csrc/{src}",
             replaces="src/repro/kernels/ssd_scan.py:53", max_abs_err=err, ms=ms,
             device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
-            library_device_ms=None, shape=shape, bytes=nbytes, flops=flops, tol=3e-4)
+            library_device_ms=None, shape=shape, bytes=nbytes, flops=flops, tol=tol)
         if "ssd_intra_chunk" in rows:
             rows["ssd_intra_chunk"].setdefault("other_shapes", []).append(ent)
         else:
@@ -716,7 +725,7 @@ def serve_models(dev):
             params.float()
             model = Model(dataclasses.replace(cfg, dtype="float32"))
             plain = Model(dataclasses.replace(cfg, dtype="float32", use_pallas=False))
-        gen32, _ = generate(model, params, batch_in, new)
+        gen32, stats32 = generate(model, params, batch_in, new)
         last32 = prefill_launches(model, params, toks, kern, L, f"{arch} f32")
         plain32, plain_gen32, gaps = greedy_plain(plain, params, toks, new)
         scale = float(plain32.abs().max())
@@ -755,6 +764,7 @@ def serve_models(dev):
                    f32_logits_max_abs_err=err, f32_logits_bound=bound, f32_logit_scale=scale,
                    f32_tokens_compared=compared, f32_streams_stopped_at_a_near_tie=ties,
                    f32_logits_err_with_ssd_block_in_f64=exact_gap,
+                   f32_prefill_ms=stats32["prefill_s"] * 1e3,
                    kernel=kern.__name__, kernel_launches_per_prefill=L)
         res[arch] = out
         log("serve", arch=cfg.name, params=n_params, dtype=cfg.dtype, init_s=f"{init_s:.3f}",
@@ -772,6 +782,7 @@ def serve_models(dev):
             served_logit_gap=f"{served_gap}/{served_scale}", f32_logits_max_abs_err=err,
             f32_bound=f"{bound:.3g}", f32_tokens_compared=compared, near_ties=ties,
             f32_err_with_ssd_block_in_f64=exact_gap,
+            f32_prefill_ms=f"{stats32['prefill_s'] * 1e3:.3f}",
             launches_per_prefill=f"{kern.__name__}:{L}")
         del params, model, plain
         torch.cuda.empty_cache()

@@ -6,8 +6,9 @@ Two CUDA kernels share one C entry (``flash_attention_launch``) and are
 chosen by dtype: bfloat16 runs on the tensor cores
 (``csrc/flash_attention_sm90.cu``: TMA-fed 64-key K/V tiles, wgmma for
 Q.K^T and P.V, 128 query rows per CTA), float32 on the CUDA cores in
-exact float32 (``csrc/flash_attention.cu``: 32-row query tiles, 32-key
-tiles). Both keep the online-softmax recurrence in f32 and skip key
+exact float32 (``csrc/flash_attention.cu``: a CTA serves every query head
+of one KV group, register-blocked products, cp.async-fed K/V tiles of 64
+keys, 32 at D >= 128). Both keep the online-softmax recurrence in f32 and skip key
 tiles wholly above the diagonal or before the window (exact: see the
 sources). Unlike the TPU kernel they take the model layout (B, S, H, D)
 directly, so the model needs no transposes. The plain version is

@@ -12,9 +12,12 @@ on the tensor cores (``csrc/ssd_intra_chunk_sm90.cu``: wgmma, x and the
 decay weights as TF32 hi / lo pairs; C.B^T and B^T once per chunk into a
 scratch buffer as shared-memory images, then one warpgroup per pair of
 query tiles or state slice, head and chunk). Float32 stays in exact
-float32 on the CUDA cores (``csrc/ssd_intra_chunk.cu``), summed in the
-order of torch's float32 einsums, which the float32 serving gate needs.
-Bound: bytes on the tensor cores (see the sources). Its plain version is
+float32 on the CUDA cores (``csrc/ssd_intra_chunk.cu``: register-tiled
+64 x 64 products fed by cp.async), summed in the order of torch's float32
+einsums, which the float32 serving gate needs: bitwise its plain version
+at mamba2-1.3b's shape.
+Bound: bytes for bf16 (tensor cores), operations for f32 (CUDA cores; see
+the sources). Its plain version is
 ``kernels/ref.py::ssd_chunk_ref`` batched over chunks, with B / C upcast
 to f32 before their product, as the TPU kernel does.
 """

@@ -147,6 +147,15 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     # a key tile (96, 100); every head dim
     (2, 64, 8, 8, 64, 0), (1, 384, 8, 1, 128, 100), (2, 512, 16, 4, 256, 96),
     (1, 128, 8, 1, 32, 100), (1, 384, 4, 4, 256, 0), (2, 64, 4, 1, 128, 0),
+    # against the f32 kernel's tiles (32 or 64 rows of G heads x M / G
+    # positions; 32- or 64-key tiles, split over key groups in the 32-row
+    # tile): S ragged against both (100), shorter than one (7), one key
+    # tile (64), many (384); GQA ratios 1, 2, 8 and 64 (more heads than a
+    # CTA's rows: two head chunks); windows 96 and 100 inside a key tile;
+    # every head dim
+    (1, 100, 8, 4, 32, 0), (2, 100, 16, 2, 64, 96), (1, 384, 8, 4, 128, 96),
+    (1, 7, 8, 1, 256, 0), (1, 64, 2, 1, 32, 100), (2, 384, 4, 2, 64, 100),
+    (1, 100, 8, 8, 128, 0), (1, 64, 64, 1, 32, 0), (4, 512, 32, 4, 128, 0),
 ])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, B, S, H, KV, D, window):
     rng = np.random.default_rng(S + D + window)
@@ -171,19 +180,37 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, B, S, H, KV, D, window)
     (1, 2, 192, 4, 64, 32), (1, 1, 256, 4, 128, 128), (1, 1, 128, 2, 64, 8),
     (1, 2, 100, 3, 40, 24), (1, 1, 64, 2, 7, 5), (1, 1, 300, 2, 128, 200),
     (1, 1, 256, 64, 64, 128),
+    # against the f32 kernel's tiles (64 x 64 outputs, 32 time steps a
+    # stage): Q equal to one stage (32), ragged against the query tile
+    # (96) and against both and not a multiple of 4 (130: 4-byte copies);
+    # P 7, 40, 128; N 5, 200; H 64 at Q 256
+    (1, 2, 32, 4, 64, 64), (1, 1, 96, 2, 40, 200), (1, 2, 130, 3, 7, 5),
+    (2, 1, 256, 64, 128, 5),
 ])
 def test_cuda_ssd_intra_chunk_matches_plain(cuda, dtype, B, nc, Q, H, P, N):
-    rng = np.random.default_rng(Q + H)
-    f = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32, device=cuda)  # noqa: E731
-    x = f(B, nc, Q, H, P)
-    steps = torch.nn.functional.softplus(f(B, nc, Q, H)) * -torch.exp(f(H))
-    da = torch.cumsum(steps, dim=2).contiguous()
-    b, c = f(B, nc, Q, N).to(dtype), f(B, nc, Q, N).to(dtype)
+    x, da, b, c = _ssd_inputs(np.random.default_rng(Q + H), cuda, B, nc, Q, H, P, N, dtype)
     before = ssd_intra_chunk.launches
     got = ssd_intra_chunk(x, da, b, c)
     assert ssd_intra_chunk.launches == before + 1
     for g, w in zip(got, ssd_intra_chunk_plain(x, da, b, c)):
         torch.testing.assert_close(g, w, rtol=3e-4, atol=3e-4)
+
+
+def _ssd_inputs(rng, dev, B, nc, Q, H, P, N, dtype):
+    f = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32, device=dev)  # noqa: E731
+    x = f(B, nc, Q, H, P)
+    steps = torch.nn.functional.softplus(f(B, nc, Q, H)) * -torch.exp(f(H))
+    da = torch.cumsum(steps, dim=2).contiguous()
+    return x, da, f(B, nc, Q, N).to(dtype), f(B, nc, Q, N).to(dtype)
+
+
+def test_cuda_ssd_intra_chunk_f32_bitwise_at_mamba2_1_3b(cuda):
+    """At mamba2-1.3b's prefill shape the f32 kernel sums in the plain
+    version's order and rounds its weights as it does: y and the states
+    are bitwise equal (the float32 serving gate rests on it)."""
+    args = _ssd_inputs(np.random.default_rng(0), cuda, 4, 2, 256, 64, 64, 128, torch.float32)
+    for g, w in zip(ssd_intra_chunk(*args), ssd_intra_chunk_plain(*args)):
+        assert torch.equal(g, w)
 
 
 def test_cuda_model_kernels_raise_instead_of_falling_back(cuda):

@@ -1,5 +1,6 @@
 """Import hygiene of the port: ``repro_torch`` (every module, the model
-and serving slice included) and ``chip_smoke.py`` import neither JAX nor
+and serving slice included), ``chip_smoke.py`` and the card tools under
+``tools/`` import neither JAX nor
 the JAX package, and the port, its configs and its serving entry point
 import with JAX made unimportable."""
 import ast
@@ -22,6 +23,10 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    tools = os.path.join(ROOT, "tools")
+    for f in sorted(os.listdir(tools)):
+        if f.endswith(".py"):
+            yield os.path.join(tools, f)
 
 
 def _imported_roots(path):
