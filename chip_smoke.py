@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch port on one NVIDIA H100.
 
     python3 chip_smoke.py               # the paper's 9000 steps, main path and sweep
-    python3 chip_smoke.py --steps 300 --sweep-steps 300    # a quick pass through every phase
+    python3 chip_smoke.py --steps 300 --sweep-steps 300 --zoo-steps 600 --figure-steps 1000
+                                        # a quick pass through every phase
 
-Every round of phases 3-5 and 7 replays a captured CUDA graph (the
+Every round of phases 3-5 and 7-9 replays a captured CUDA graph (the
 Plan's executable cache, ``repro_torch.api.plan``), and every decode
 step of phase 6 too (``launch.serve.DecodeGraph``); each captured run's
 capture is timed apart from its replays, and short eager windows of the
@@ -107,7 +108,34 @@ Phases, each printed on its own line:
    each scenario of a cuda sweep equals its own cuda ensemble bitwise,
    and a 4-seed mixed sweep (the three algorithms and ``none``, churny
    failures) on cuda equals the same sweep on the CPU (integers bitwise,
-   theta_mean within 1e-6).
+   theta_mean within 1e-6);
+8. zoo: Fig. 9's grid at its full setting (``benchmarks/fig9_zoo.py``
+   under ``BENCH_FULL=1``: community graph n 64, two bridges; DecAFork+
+   Z0 10, eps 3.0 / 7.57, W 64, B 1024, decisions from step 1000; the
+   defenses uniform / jump / biased / bloom against none / mobile Pac-Man
+   (hop 0.5) / two Pac-Men (0, 32) / an edge cut at 32, every attack at
+   step 2166; 16 seeds, 4500 steps unless ``--zoo-steps`` says otherwise)
+   through the port's ``figures.fig9_zoo`` experiment, one sweep on cuda:
+   each group's decision and reason, captured ms per round,
+   trajectory-rounds/s and capture seconds. No group may decide fused
+   (whole_round never sees a variant, Pac-Man slots or an edge cut); each
+   group's round must hold its kernel once (round_update) and launch it
+   once per round plus its capture's warm-up round; the ``none`` rows
+   must survive near Z0. Then the first 200 rounds x 4 seeds of every
+   group on cuda against the CPU (run in a thread beside the sweep):
+   integer outputs and the final carry (``prev``, ``bloom``,
+   ``pacman_pos`` included) bitwise, theta_mean within 1e-6; and for a
+   bloom group and a mobile Pac-Man group the captured run against the
+   eager loop, bitwise;
+9. figures: the port's drivers of Figs. 2, 3, 4, 6 and 7,
+   ``theory_bounds`` and ``auto_eps`` (``repro_torch.figures``) on cuda at
+   their reduced setting, cut to ``--figure-steps`` rounds (default
+   2400); each row's CSV is printed and must be finite, and each kernel's
+   launches must equal one per round of the groups whose path it is
+   (whole_round in the fused groups, round_update in unfused DecAFork
+   groups, theta_sums in ``auto_eps``'s auto runs) plus one warm-up round
+   per new capture. Their result files go to
+   ``chiprun_out/figures_smoke/``.
 
 Before the last line it prints the card's name and power limit, then one
 JSON object with every kernel's launches, error and times; the last line
@@ -161,6 +189,18 @@ CHURN = dict(burst_times=(60, 140), burst_sizes=(5, 6), p_fail=0.002,
              pacman_node=4, pacman_start_time=100,
              node_crash_times=(50,), node_crash_ids=(3,))
 INT_FIELDS = ("z", "forks", "terms", "failures", "fork_parent", "terminated")
+# phase 9's default rounds, cut from the drivers' reduced 4500 to hold the
+# whole run near 700 s: the first burst (1500), Fig. 3's Byzantine phase
+# (1800) and Fig. 7's crash and Pac-Man (2033) still fire, the second
+# burst (3000) does not
+FIGURE_STEPS = 2400
+Z_BAND = (PAPER["z0"] / 2, 2 * PAPER["z0"])  # mean Z after the start must lie here
+# phase 8: Fig. 9's grid as benchmarks/fig9_zoo.py sets it under BENCH_FULL=1
+ZOO = dict(n=64, steps=4500, seeds=16, protocol_start=1000, parity_steps=200, parity_seeds=4)
+# phase 9: the port's figure drivers (name, module); Figs. 1 and 5 are phase 7
+FIGURES = (("fig2", "fig2_probabilistic"), ("fig3", "fig3_byzantine"), ("fig4", "fig4_nodes"),
+           ("fig6", "fig6_graphs"), ("fig7", "fig7_topology"), ("theory", "theory_bounds"),
+           ("auto_eps", "auto_eps"))
 
 
 def log(phase: str, **kv) -> None:
@@ -1446,12 +1486,313 @@ def sweep_parity(graph):
     return dict(steps=steps, seeds=PAPER["seeds"], forks=forks, mixed_theta_mean_max_abs_err=err)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the zoo (Fig. 9's grid at its full setting)
+# ---------------------------------------------------------------------------
+
+
+def same_leaves(a, b, label):
+    """Every tensor of two trees equal bitwise (floats by their bits)."""
+    import torch
+
+    from repro_torch.utils.tree import tree_leaves
+
+    a, b = tree_leaves(a), tree_leaves(b)
+    if len(a) != len(b) or not a:
+        raise AssertionError(f"{label}: another structure")
+    for x, y in zip(a, b):
+        x, y = x.cpu(), y.cpu()
+        if x.dtype.is_floating_point:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            raise AssertionError(f"{label}: differs")
+
+
+def path_kernel(runner):
+    """The kernel a cached runner's round launches once per round:
+    whole_round for a fused round, else its estimator's (round_update
+    for ``"fused"``, theta_sums for ``"pallas"``) where the algorithm
+    estimates theta, else none."""
+    from repro_torch.core import simulator as sim
+    from repro_torch.kernels import round_update, theta_sums, whole_round
+
+    pcfg = runner.setup.pcfg
+    if runner.decision.fused:
+        return whole_round
+    if pcfg.algorithm not in ("decafork", "decafork+"):
+        return None
+    impl = sim.resolved_estimator_impl(pcfg)
+    if impl == "fused" and runner.setup.pi is None:
+        return round_update
+    return theta_sums if impl == "pallas" else None
+
+
+def expected_launches(slots_before, rounds_by_slot):
+    """Kernel name -> launches a run of cached runners must have made:
+    ``rounds_by_slot`` (cache key -> rounds replayed) rounds of each
+    runner's kernel, plus one warm-up round for each slot that is new
+    since ``slots_before``."""
+    from repro_torch.api import plan as plan_mod
+    from repro_torch.kernels import KERNELS
+
+    want = {k.__name__: 0 for k in KERNELS}
+    for key, rounds in rounds_by_slot.items():
+        kern = path_kernel(plan_mod._EXECUTABLES[key])
+        if kern is not None:
+            want[kern.__name__] += rounds + (key not in slots_before)
+    return want
+
+
+def zoo_phase(steps, seeds):
+    """Phase 8: Fig. 9's grid (``benchmarks/fig9_zoo.py`` under
+    ``BENCH_FULL=1``) through the port's driver's experiment, one sweep on
+    cuda, each group captured and timed; then parity and captured-vs-eager
+    at 200 rounds. The parity's CPU side runs in a thread beside the
+    device-bound sweep (the host waits on the card meanwhile)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import plan as plan_mod
+    from repro_torch.figures import fig9_zoo
+    from repro_torch.kernels import KERNELS
+
+    z = ZOO
+    attack_at = fig9_zoo.attack_time(z["steps"], z["protocol_start"])
+    exp = fig9_zoo.experiment(device="cuda", steps=steps, proto_start=z["protocol_start"],
+                              attack_at=attack_at, n=z["n"])
+    plan = exp.plan()
+    scen = exp.scenarios
+    decisions = {tuple(idxs): d for _sig, idxs, d in plan.round_decisions()}
+    groups, stacked = [], plan.sweep_stacked
+    pool = ThreadPoolExecutor(max_workers=1)
+    cpu_runs = pool.submit(zoo_cpu_runs, exp, z["parity_steps"], z["parity_seeds"])
+
+    def timed(scenarios, **kw):
+        slots = set(plan_mod._EXECUTABLES)
+        before = {k.__name__: k.launches for k in KERNELS}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = stacked(scenarios, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # the CPU thread adds its own slots meanwhile: this group's is the
+        # new one on the card
+        (key,) = [k for k, r in list(plan_mod._EXECUTABLES.items())
+                  if k not in slots and r.setup.neighbors.is_cuda]
+        runner = plan_mod._EXECUTABLES[key]
+        grew = {k.__name__: k.launches - before[k.__name__] for k in KERNELS}
+        want = expected_launches(slots, {key: steps})
+        kern = path_kernel(runner)
+        graph_launches(runner, scenarios[0].name, {kern.__name__: 1} if kern else {})
+        if grew != want:
+            raise AssertionError(f"zoo group {[s.name for s in scenarios]}: launches {grew}, "
+                                 f"expected {want}")
+        replay_s = wall - runner.capture_s
+        rows = len(scenarios) * seeds
+        groups.append(dict(scenarios=[s.name for s in scenarios], rows=rows, steps=steps,
+                           impl=runner.decision.impl, reason=runner.decision.reason,
+                           kernel=kern.__name__ if kern else None, wall_s=wall,
+                           capture_s=runner.capture_s, ms_per_round=replay_s * 1e3 / steps,
+                           trajectory_rounds_per_s=rows * steps / replay_s,
+                           launches={k: v for k, v in grew.items() if v},
+                           graph_kernel_nodes=runner.graph.kernel_nodes))
+        g = groups[-1]
+        log("zoo", group=repr(",".join(g["scenarios"])), decision=g["impl"],
+            reason=repr(g["reason"]), rows=rows, steps=steps, wall_s=f"{wall:.3f}",
+            capture_s=f"{runner.capture_s:.3f}", captured_ms_per_round=f"{g['ms_per_round']:.4f}",
+            trajectory_rounds_per_s=f"{g['trajectory_rounds_per_s']:.1f}",
+            launches=g["launches"], graph_kernel_nodes=g["graph_kernel_nodes"])
+        return out
+
+    plan.sweep_stacked = timed
+    for k in KERNELS:  # this path's counts start here
+        k.launches = 0
+    try:
+        res = plan.sweep(seeds=seeds)
+        cpu = cpu_runs.result()
+    finally:
+        pool.shutdown()
+    counts = {k.__name__: k.launches for k in KERNELS}
+    for idxs, d in decisions.items():
+        if d.fused:
+            raise AssertionError(f"zoo group {idxs} decided fused: the whole_round kernel "
+                                 "must never see a variant, Pac-Man slots or an edge cut")
+    start = min(z["protocol_start"], steps - 1)
+    per = {}
+    for s in scen:
+        zz = res[s.name].z.cpu().numpy()
+        if zz.shape != (seeds, steps) or not np.isfinite(res[s.name].theta_mean.cpu().numpy()).all():
+            raise AssertionError(f"{s.name}: z {zz.shape} or non-finite theta_mean")
+        post = zz[:, start:]
+        per[s.name] = dict(survival=float((zz > 0).all(axis=1).mean()),
+                           mean_z_after_start=float(post.mean()), min_z_after_start=int(post.min()),
+                           max_z=int(zz.max()), forks=int(res[s.name].forks.sum()),
+                           terms=int(res[s.name].terms.sum()))
+        log("zoo", scenario=repr(s.name), **per[s.name])
+        if s.name.endswith("|none") and (per[s.name]["survival"] < 1.0 or not
+                                         Z_BAND[0] <= per[s.name]["mean_z_after_start"] <= Z_BAND[1]):
+            raise AssertionError(f"{s.name}: survival {per[s.name]['survival']}, "
+                                 f"mean Z after start {per[s.name]['mean_z_after_start']}")
+    parity = zoo_parity(exp, z["parity_steps"], z["parity_seeds"], cpu)
+    return dict(steps=steps, seeds=seeds, attack_at=attack_at, groups=groups, scenarios=per,
+                parity=parity), counts
+
+
+def zoo_cpu_runs(exp, steps, seeds):
+    """The zoo grid's first ``steps`` rounds x ``seeds`` seeds on the CPU,
+    per group: group indices -> (final state, outputs)."""
+    from repro_torch.api import Experiment
+
+    plan = Experiment(graph=exp.graph, scenarios=exp.scenarios, steps=steps, outputs="full",
+                      device="cpu").plan()
+    return {tuple(idxs): plan.sweep_group([exp.scenarios[i] for i in idxs], seeds=seeds)
+            for _sig, idxs in plan.groups()}
+
+
+def zoo_parity(exp, steps, seeds, cpu):
+    """The zoo grid's first ``steps`` rounds x ``seeds`` seeds, every group
+    on cuda against the CPU's (``cpu``, from :func:`zoo_cpu_runs`):
+    integer outputs and the final carry (the variants' ``prev`` /
+    ``bloom`` columns and the Pac-Man positions included) bitwise,
+    theta_mean within 1e-6; then for a ``bloom`` group and a mobile
+    Pac-Man group the captured run against the eager loop (outputs and
+    final carry bitwise)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Experiment
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.outputs import FULL
+    from repro_torch.utils import prng
+
+    plan = Experiment(graph=exp.graph, scenarios=exp.scenarios, steps=steps, outputs="full",
+                      device="cuda").plan()
+    scen = exp.scenarios
+    err, eager = 0.0, {}
+    keys = prng.split(prng.key(0, device="cuda"), seeds)
+    for _sig, idxs in plan.groups():
+        group = [scen[i] for i in idxs]
+        (gs, go), (ws, wo) = plan.sweep_group(group, seeds=seeds), cpu[tuple(idxs)]
+        label = ",".join(s.name for s in group)
+        same_leaves(gs, ws, f"zoo parity {label}: final carry")
+        for f in INT_FIELDS:
+            same_leaves((getattr(go, f),), (getattr(wo, f),), f"zoo parity {label}: {f}")
+        theta, want = go.theta_mean.cpu().numpy(), wo.theta_mean.numpy()
+        np.testing.assert_allclose(theta, want, rtol=1e-6, atol=1e-6)
+        err = max(err, float(np.abs(theta - want).max()))
+        variant = group[0].pcfg.walk_variant
+        mobile = group[0].fcfg.pacman_mobile
+        case = "bloom" if variant == "bloom" and not mobile else "mobile_pacman" if (
+            mobile and variant == "uniform") else None
+        if case:
+            setup = sim.make_setup(exp.graph, [s.pcfg for s in group for _ in range(seeds)],
+                                   [s.fcfg for s in group for _ in range(seeds)], steps, "cuda")
+            decision = sim.round_impl_decision(group[0].pcfg, setup.fcfg)
+            state = sim.init_state(keys.repeat(len(group), 1), setup)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e_final, e_rec = sim.run_rounds(state, setup, steps, FULL, decision)
+            torch.cuda.synchronize()
+            eager[case] = (time.perf_counter() - t0) * 1e3 / steps
+            same_leaves(gs, e_final, f"zoo {case}: captured vs eager final carry")
+            same_leaves(tuple(go), tuple(e_rec), f"zoo {case}: captured vs eager outputs")
+            log("zoo", captured_vs_eager=case, group=repr(label), rounds=steps,
+                eager_ms_per_round=f"{eager[case]:.4f}", outputs_final_carry="bitwise")
+    if set(eager) != {"bloom", "mobile_pacman"}:
+        raise AssertionError(f"zoo parity: captured vs eager ran for {sorted(eager)}")
+    log("zoo", parity="cuda vs cpu, every group", rounds=steps, seeds=seeds,
+        integers_final_carry="bitwise", theta_mean_max_abs_err=err)
+    return dict(steps=steps, seeds=seeds, theta_mean_max_abs_err=err,
+                eager_ms_per_round=eager)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the paper's figure drivers
+# ---------------------------------------------------------------------------
+
+
+def finite_row(row) -> bool:
+    import math
+
+    vals = []
+    for v in row.values():
+        if isinstance(v, dict):
+            vals += list(v.values())
+        else:
+            vals.append(v)
+    nums = [x for v in vals for x in (v if isinstance(v, list) else [v])
+            if isinstance(x, (int, float))]
+    return all(math.isfinite(x) for x in nums)
+
+
+def figure_phase(steps, out):
+    """Phase 9: each port driver of ``FIGURES`` on cuda at its reduced
+    setting (``steps`` cuts its rounds where given), its CSV rows
+    printed; every row finite, and each kernel launched once per round of
+    the groups whose path it is (whole_round in the fused groups,
+    round_update in the unfused ones, theta_sums in auto_eps's auto
+    runs), plus one warm-up round per new capture."""
+    import importlib
+
+    from repro_torch.api import plan as plan_mod
+    from repro_torch.kernels import KERNELS
+
+    res, counts = {}, {k.__name__: 0 for k in KERNELS}
+    for name, module in FIGURES:
+        mod = importlib.import_module(f"repro_torch.figures.{module}")
+        kw = {} if steps is None else dict(steps=steps)
+        rounds = steps or mod.STEPS
+        slots = set(plan_mod._EXECUTABLES)
+        replays = {}  # cache key -> rounds its runner ran in this driver
+        orig = plan_mod.executable
+
+        def counted(mode, signature, build, _orig=orig):
+            runner = _orig(mode, signature, build)
+            replays[(mode, signature)] = replays.get((mode, signature), 0) + runner.steps
+            return runner
+
+        for k in KERNELS:  # this driver's counts start here
+            k.launches = 0
+        plan_mod.executable = counted
+        t0 = time.perf_counter()
+        try:
+            rows = mod.run(verbose=True, device="cuda", out=out, **kw)
+        finally:
+            plan_mod.executable = orig
+        wall = time.perf_counter() - t0
+        got = {k.__name__: k.launches for k in KERNELS}
+        want = expected_launches(slots, replays)
+        if got != want:
+            raise AssertionError(f"{name}: kernel launches {got}, expected {want}")
+        bad = [r["name"] for r in rows if not finite_row(r)]
+        if bad:
+            raise AssertionError(f"{name}: rows with non-finite values {bad}")
+        if not got["whole_round"]:
+            raise AssertionError(f"{name}: no fused group launched whole_round")
+        if name == "auto_eps" and not got["theta_sums"]:
+            raise AssertionError("auto_eps: its auto runs did not launch theta_sums")
+        for k, v in got.items():
+            counts[k] += v
+        res[name] = dict(steps=rounds, wall_s=wall, rows=rows,
+                         launches={k: v for k, v in got.items() if v})
+        log("figures", driver=name, steps=rounds, wall_s=f"{wall:.1f}", rows=len(rows),
+            launches=res[name]["launches"], rows_finite=True)
+    return res, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=MAIN_STEPS,
                     help=f"main-path rounds (default {MAIN_STEPS}; the paper runs 9000)")
     ap.add_argument("--sweep-steps", type=int, default=SWEEP_STEPS,
                     help=f"phase 7's rounds (default {SWEEP_STEPS}; the paper runs 9000)")
+    ap.add_argument("--zoo-steps", type=int, default=ZOO["steps"],
+                    help=f"phase 8's rounds (default {ZOO['steps']}, Fig. 9's full setting)")
+    ap.add_argument("--figure-steps", type=int, default=FIGURE_STEPS,
+                    help=f"phase 9's rounds per driver (default {FIGURE_STEPS}; the drivers' "
+                         "reduced setting runs 4500)")
     args = ap.parse_args()
 
     try:
@@ -1533,6 +1874,20 @@ def main() -> int:
     lap("7 sweep")
     sweep["parity"] = sweep_parity(graph)
     lap("7 sweep parity")
+    if args.zoo_steps < ZOO["steps"]:
+        log("zoo", cut=f"steps {args.zoo_steps} of Fig. 9's {ZOO['steps']}; n, W, B, seeds uncut")
+    zoo, zoo_counts = zoo_phase(args.zoo_steps, ZOO["seeds"])
+    for k, v in zoo_counts.items():
+        counts[k] += v
+    lap("8 zoo")
+    if args.figure_steps is not None:
+        log("figures", cut=f"steps {args.figure_steps} of the drivers' reduced 4500 (fig9_zoo "
+                           "keeps its own); seeds, widths and event times uncut")
+    figures, figure_counts = figure_phase(args.figure_steps,
+                                          os.path.join(ROOT, "chiprun_out", "figures_smoke"))
+    for k, v in figure_counts.items():
+        counts[k] += v
+    lap("9 figures")
     log("time", **{k.replace(" ", "_"): f"{v:.1f}" for k, v in phase_s.items()})
 
     for r in rows:
@@ -1545,7 +1900,8 @@ def main() -> int:
                   cuda=torch.version.cuda, build_s=build_s,
                   build_s_by_source=build, sass=sass, kernels=rows,
                   main=main_res, profile=profile, parity=parity, unfused=unfused,
-                  captured_vs_eager=captured, serve=serve, sweep=sweep, phase_s=phase_s)
+                  captured_vs_eager=captured, serve=serve, sweep=sweep, zoo=zoo,
+                  figures=figures, phase_s=phase_s)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(detail, fh, indent=1)

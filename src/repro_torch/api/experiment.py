@@ -7,6 +7,7 @@
     final, outs = exp.run(key=0)      # one trajectory
     outs = exp.ensemble(seeds=50)     # the paper's seed ensembles
     res = Experiment(graph=g, scenarios=[...], steps=9000).sweep(seeds=50)
+    exp = Experiment.from_config({"experiment": "zoo", "n": 64, "device": "cuda"})
 
 It runs on ``cuda`` unless ``device`` says otherwise (``device="cpu"``
 runs the kernels' plain versions); with no CUDA device and no explicit
@@ -78,6 +79,23 @@ class Experiment:
         object.__setattr__(self, "device", resolve_device(self.device))
         object.__setattr__(self, "_spec", resolve_spec(self.outputs))
         self.plan()  # unported configurations raise here, not mid-run
+
+    @classmethod
+    def from_config(cls, config) -> "Experiment":
+        """Build a registered experiment from a plain config mapping:
+        ``config["experiment"]`` names a builder of
+        :mod:`repro_torch.api.registry`, every other key is a keyword
+        override (``device`` and ``partitionable`` included)."""
+        from repro_torch.api import registry
+
+        cfg = dict(config)
+        name = cfg.pop("experiment", None)
+        if not name:
+            raise ValueError(
+                "config needs an 'experiment' key naming a registered experiment; "
+                f"registered: {list(registry.names())}"
+            )
+        return registry.build(name, **cfg)
 
     def plan(self) -> Plan:
         return Plan(self)

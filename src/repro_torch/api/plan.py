@@ -211,6 +211,14 @@ class Plan:
         Outputs are RecordedOutputs with (S, seeds, steps, ...) fields."""
         _check_unported(store, segment_steps)
         scenarios = self._scenarios(scenarios, "sweep_stacked")
+        _final, rec = self.sweep_group(scenarios, seeds=seeds, base_key=base_key)
+        S = len(scenarios)
+        return rec.map(lambda v: v.reshape((S, seeds) + v.shape[1:]))
+
+    def sweep_group(self, scenarios: Sequence, *, seeds: int, base_key=0):
+        """:meth:`sweep_stacked`'s batch with its final state: ``(final
+        SimState, RecordedOutputs)``, both with ``S * seeds`` rows,
+        scenario-major."""
         pcfgs, fcfgs = stack_configs(scenarios)
         S = len(scenarios)
         keys = prng.split(_as_key(base_key, self.device), seeds,
@@ -221,8 +229,7 @@ class Plan:
             self.partitionable,
         )
         decision = sim.round_impl_decision(pcfgs[0], fcfgs[0])
-        _final, rec = self._execute("sweep", keys.repeat(S, 1), setup, fcfgs[0], decision)
-        return rec.map(lambda v: v.reshape((S, seeds) + v.shape[1:]))
+        return self._execute("sweep", keys.repeat(S, 1), setup, fcfgs[0], decision)
 
     def sweep(self, scenarios: Sequence | None = None, *, seeds: int, base_key=0,
               store=None, segment_steps: int | None = None) -> SweepResult:

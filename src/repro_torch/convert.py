@@ -39,24 +39,34 @@ STATE_FIELDS = {
     "graph.node_up": (torch.bool, 1),
     "graph.edge_up": (torch.bool, 2),
     "theta_hist": (torch.float32, 2),
+    # the zoo's columns, present only where the run carries them (a walk
+    # variant's memory, a mobile Pac-Man's positions)
+    "walks.prev": (torch.int32, 1),
+    "walks.bloom": (torch.bool, 2),
+    "pacman_pos": (torch.int32, 1),
 }
+OPTIONAL_FIELDS = ("walks.prev", "walks.bloom", "pacman_pos")
 
 
 def state_from_arrays(arrays: Mapping[str, np.ndarray], device) -> SimState:
     """The port's batched ``SimState`` from an exported reference state.
 
-    ``arrays`` maps every path of :data:`STATE_FIELDS` to a numpy array,
-    either of one trajectory or with a leading batch axis (all fields
-    alike). Observation rows beyond the graph's ``n`` (the reference's
-    kernel padding) are cut off.
+    ``arrays`` maps every path of :data:`STATE_FIELDS` to a numpy array
+    (those of :data:`OPTIONAL_FIELDS` where the state has them), either
+    of one trajectory or with a leading batch axis (all fields alike).
+    Observation rows beyond the graph's ``n`` (the reference's kernel
+    padding) are cut off.
     """
-    missing = [f for f in STATE_FIELDS if f not in arrays]
+    missing = [f for f in STATE_FIELDS if f not in arrays and f not in OPTIONAL_FIELDS]
     if missing:
         raise KeyError(f"exported state lacks {missing}")
     batched = np.ndim(arrays["t"]) == 1
     n = np.shape(arrays["graph.node_up"])[-1]
     out = {}
     for f, (dtype, rank) in STATE_FIELDS.items():
+        if f not in arrays:
+            out[f] = None
+            continue
         a = np.asarray(arrays[f])
         if f == "key":
             a = a.astype(np.uint32).astype(np.int64)
@@ -70,7 +80,8 @@ def state_from_arrays(arrays: Mapping[str, np.ndarray], device) -> SimState:
     return SimState(
         t=out["t"],
         walks=wlk.WalkState(
-            pos=out["walks.pos"], active=out["walks.active"], track=out["walks.track"]
+            pos=out["walks.pos"], active=out["walks.active"], track=out["walks.track"],
+            prev=out["walks.prev"], bloom=out["walks.bloom"],
         ),
         last_seen=out["last_seen"],
         rts=est.ReturnTimeState(hist=out["rts.hist"], total=out["rts.total"]),
@@ -78,6 +89,7 @@ def state_from_arrays(arrays: Mapping[str, np.ndarray], device) -> SimState:
         key=out["key"],
         graph=GraphState(node_up=out["graph.node_up"], edge_up=out["graph.edge_up"]),
         theta_hist=out["theta_hist"],
+        pacman_pos=out["pacman_pos"],
     )
 
 

@@ -2,11 +2,13 @@
 
 Counterpart of the JAX package's ``core/failures.py``: bursts,
 probabilistic failures, the Byzantine 2-state chain, node crashes
-(scheduled and i.i.d.), link failures and the single static Pac-Man.
-``FailureConfig`` keeps the reference's fields; its numeric fields become
-(batch,) tensors (schedules (batch, K)) through :func:`failure_rows`.
-The zoo attacks (mobile or multi-node Pac-Man, edge cuts) are not ported
-in this slice and raise.
+(scheduled and i.i.d.), link failures, the static Pac-Man, and the zoo's
+attacks: several Pac-Man nodes at once (``pacman_nodes``), a mobile
+Pac-Man whose positions hop each round (``pacman_mobile``, carried as
+``SimState.pacman_pos``) and scheduled partition cuts
+(``edge_cut_times`` / ``edge_cut_thresholds``). ``FailureConfig`` keeps
+the reference's fields; its numeric fields become (batch,) tensors
+(schedules (batch, K)) through :func:`failure_rows`.
 
 Every model is branch-free on the rows: a disabled mechanism (rate 0,
 node -1, time -1) is a numeric no-op on the same program.
@@ -18,6 +20,7 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.walkers import select_available_edge
 from repro_torch.graphs.state import GraphState
 from repro_torch.utils import prng
 
@@ -98,16 +101,10 @@ _FAILURE_DATA = tuple(
 
 
 def check_ported(fcfg: FailureConfig) -> None:
-    """Raise for a failure configuration this slice does not run."""
-    if fcfg.pacman_mobile or fcfg.n_pacman:
-        raise NotImplementedError(
-            "mobile and multi-node Pac-Man are not ported yet "
-            "(ROADMAP.md queue 1, item 7: zoo)"
-        )
-    if fcfg.n_edge_cuts:
-        raise NotImplementedError(
-            "scheduled edge cuts are not ported yet (ROADMAP.md queue 1, item 7: zoo)"
-        )
+    """Raise for a failure configuration the port does not run. Every
+    field is ported since the zoo slice, so nothing raises; the Plan
+    still calls this before a run, next to the protocol's check."""
+    del fcfg
 
 
 class FailureRows(NamedTuple):
@@ -131,13 +128,17 @@ class FailureRows(NamedTuple):
     link_fail_start: torch.Tensor
     pacman_node: torch.Tensor
     pacman_start_time: torch.Tensor
+    pacman_nodes: torch.Tensor  # (batch, Kp) int32 extra Pac-Man ids (-1 off)
+    pacman_hop_prob: torch.Tensor  # (batch,) float32
+    edge_cut_times: torch.Tensor  # (batch, Ke) int32 (-1 never fires)
+    edge_cut_thresholds: torch.Tensor  # (batch, Ke) int32 (-1 never fires)
 
 
 _ROW_DTYPES = {
     "p_fail": torch.float32, "p_byz": torch.float32,
     "p_node_fail": torch.float32, "p_node_recover": torch.float32,
     "p_link_fail": torch.float32, "p_link_recover": torch.float32,
-    "byz_start": torch.bool,
+    "pacman_hop_prob": torch.float32, "byz_start": torch.bool,
 }
 
 
@@ -215,9 +216,61 @@ def pacman_kill_node(t, rows: FailureRows):
     return torch.where(armed, rows.pacman_node, -1)
 
 
-def apply_pacman(active, pos, t, rows: FailureRows):
-    """The static Pac-Man silently absorbs every walk stepping onto it."""
-    return active & ~(pos == pacman_kill_node(t, rows).view(-1, 1))
+def initial_pacman_positions(rows: FailureRows):
+    """(batch, 1+K) int32: ``pacman_node`` followed by the extra
+    ``pacman_nodes`` (-1 entries are disarmed). A mobile run carries them
+    as ``SimState.pacman_pos``."""
+    return torch.cat([rows.pacman_node.view(-1, 1), rows.pacman_nodes], dim=1)
+
+
+def apply_pacman(active, pos, t, rows: FailureRows, pac_pos=None):
+    """Pac-Man silently absorbs every walk stepping onto it. With no extra
+    ``pacman_nodes`` and no carried positions this is the single static
+    node's kill; otherwise every armed position (the config's, or the
+    mobile run's ``pac_pos``) absorbs at once."""
+    if pac_pos is None and rows.pacman_nodes.shape[1] == 0:
+        return active & ~(pos == pacman_kill_node(t, rows).view(-1, 1))
+    pac = initial_pacman_positions(rows) if pac_pos is None else pac_pos
+    hit = ((pos[..., :, None] == pac[..., None, :]) & (pac[..., None, :] >= 0)).any(dim=-1)
+    return active & ~(hit & (t >= rows.pacman_start_time).view(-1, 1))
+
+
+def step_mobile_pacman(pac_pos, t, rows: FailureRows, keys, neighbors, avail,
+                       *, partitionable=True):
+    """Hop each armed Pac-Man (``pac_pos`` (batch, P), -1 off) to a
+    uniform available neighbour w.p. ``pacman_hop_prob``, from
+    ``pacman_start_time`` on, with the walks' rank-select over the live
+    ``avail`` (batch, n, D); the key splits in two (hop, gate) and each
+    half draws (P,) uniforms. A position with no live incident edge
+    holds."""
+    P = pac_pos.shape[1]
+    n, D = neighbors.shape
+    sub = prng.split(keys, 2, partitionable=partitionable).transpose(0, 1)
+    u = prng.uniform(sub, (P,), partitionable=partitionable)  # (2, batch, P)
+    gate = u[1] < rows.pacman_hop_prob.view(-1, 1)
+    safe = torch.clamp(pac_pos, 0, n - 1).long()
+    row_mask = torch.gather(avail, 1, safe[..., None].expand(-1, -1, D))
+    adeg, sel = select_available_edge(row_mask, u[0])
+    nxt = neighbors[safe, sel].to(pac_pos.dtype)
+    can_move = gate & (pac_pos >= 0) & (adeg > 0) & (t >= rows.pacman_start_time).view(-1, 1)
+    return torch.where(can_move, nxt, pac_pos)
+
+
+def edge_cut_mask(neighbors, t, rows: FailureRows):
+    """(batch, n, D) bool: the edge slots a scheduled cut severs at ``t``.
+    At ``edge_cut_times[i]`` every slot whose endpoints straddle
+    ``edge_cut_thresholds[i]`` (id < thr against >= thr) goes down; time
+    or threshold -1 never fires. Padded adjacency slots are compared as
+    they are, as in the reference; ``availability`` masks them."""
+    n, D = neighbors.shape
+    ids = torch.arange(n, device=neighbors.device).view(1, n, 1)
+    down = torch.zeros((t.shape[0], n, D), dtype=torch.bool, device=t.device)
+    for i in range(rows.edge_cut_times.shape[1]):
+        thr = rows.edge_cut_thresholds[:, i].view(-1, 1, 1)
+        fire = (t == rows.edge_cut_times[:, i]) & (rows.edge_cut_thresholds[:, i] >= 0)
+        cross = (ids < thr) != (neighbors[None] < thr)
+        down = down | (cross & fire.view(-1, 1, 1))
+    return down
 
 
 def topology_uniforms(keys, neighbors, mirror, *, partitionable=True):
@@ -252,8 +305,11 @@ def gate(t, start, rate):
     return torch.where(t >= start, rate, torch.full_like(rate, -1.0))
 
 
-def apply_topology(gs: GraphState, t, rows: FailureRows, sched_down, u_nfail, u_nrec, e_fail, e_rec):
-    """Pure mask update given pre-drawn uniforms."""
+def apply_topology(gs: GraphState, t, rows: FailureRows, sched_down, u_nfail, u_nrec, e_fail, e_rec,
+                   cut_down=None):
+    """Pure mask update given pre-drawn uniforms. ``cut_down`` (from
+    :func:`edge_cut_mask`, where cuts are scheduled) forces those slots
+    down this step and blocks their recovery."""
     p_nf = gate(t, rows.node_fail_start, rows.p_node_fail).view(-1, 1)
     crash = u_nfail < p_nf
     recover = u_nrec < rows.p_node_recover.view(-1, 1)
@@ -261,18 +317,23 @@ def apply_topology(gs: GraphState, t, rows: FailureRows, sched_down, u_nfail, u_
     p_lf = gate(t, rows.link_fail_start, rows.p_link_fail).view(-1, 1, 1)
     fail = e_fail < p_lf
     rec = e_rec < rows.p_link_recover.view(-1, 1, 1)
-    edge_up = torch.where(gs.edge_up, ~fail, rec)
+    if cut_down is None:
+        edge_up = torch.where(gs.edge_up, ~fail, rec)
+    else:
+        edge_up = torch.where(gs.edge_up, ~(fail | cut_down), rec & ~cut_down)
     return GraphState(node_up=node_up, edge_up=edge_up)
 
 
 def step_topology(gs, t, rows, keys, neighbors, mirror, *, partitionable=True):
     """Advance the live topology one step (``topology_uniforms`` then
-    ``apply_topology``, as in the reference)."""
+    ``apply_topology``, with any scheduled edge cuts, as in the
+    reference)."""
     u_nfail, u_nrec, e_fail, e_rec = topology_uniforms(
         keys, neighbors, mirror, partitionable=partitionable
     )
     sched = scheduled_crash_mask(neighbors.shape[0], t, rows)
-    return apply_topology(gs, t, rows, sched, u_nfail, u_nrec, e_fail, e_rec)
+    cut = edge_cut_mask(neighbors, t, rows) if rows.edge_cut_times.shape[1] else None
+    return apply_topology(gs, t, rows, sched, u_nfail, u_nrec, e_fail, e_rec, cut)
 
 
 def kill_resident_walks(active, pos, node_up):
@@ -281,10 +342,12 @@ def kill_resident_walks(active, pos, node_up):
 
 
 def pad_bursts(cfgs: Sequence[FailureConfig]):
-    """Pad configs to common schedule lengths (time/id -1 never fires)."""
+    """Pad configs to common schedule lengths: bursts, node crashes,
+    extra Pac-Man ids and edge cuts (time / id / threshold -1 never
+    fires, a padded burst size is 0)."""
     widths = {
         a: max((len(getattr(c, a)) for c in cfgs), default=0)
-        for pair in _SCHEDULES for a in pair
+        for a in [a for pair in _SCHEDULES for a in pair] + ["pacman_nodes"]
     }
     fills = {"burst_sizes": 0}
 

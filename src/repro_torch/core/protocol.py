@@ -100,13 +100,11 @@ class ProtocolConfig:
 
 
 def check_ported(pcfg: ProtocolConfig) -> None:
-    """Raise for a protocol configuration the port does not run yet
-    (ROADMAP.md, queue 1), instead of running something else."""
-    if pcfg.walk_variant != "uniform":
-        raise NotImplementedError(
-            f"walk_variant {pcfg.walk_variant!r} is not ported yet "
-            "(ROADMAP.md queue 1, item 7: zoo)"
-        )
+    """Raise for a protocol configuration the port does not run. Every
+    field is ported since the zoo slice (the walk variants run through
+    ``repro_torch.zoo.variants``), so nothing raises; the Plan still
+    calls this before a run, next to the failure config's check."""
+    del pcfg
 
 
 class ProtocolRows(NamedTuple):
@@ -123,6 +121,9 @@ class ProtocolRows(NamedTuple):
     eps_quantile: torch.Tensor  # (batch,) float32
     eps2_quantile: torch.Tensor  # (batch,) float32
     auto_min_samples: torch.Tensor  # (batch,) int32
+    p_jump: torch.Tensor  # (batch,) float32 'jump' teleport probability
+    bias_p: torch.Tensor  # (batch,) float32 'biased' return parameter
+    bias_q: torch.Tensor  # (batch,) float32 'biased' in-out parameter
 
 
 def protocol_rows(cfgs: Sequence[ProtocolConfig], device) -> ProtocolRows:
@@ -142,6 +143,9 @@ def protocol_rows(cfgs: Sequence[ProtocolConfig], device) -> ProtocolRows:
         eps_quantile=col((c.eps_quantile for c in cfgs), torch.float32),
         eps2_quantile=col((c.eps2_quantile for c in cfgs), torch.float32),
         auto_min_samples=col((c.auto_min_samples for c in cfgs), torch.int32),
+        p_jump=col((c.p_jump for c in cfgs), torch.float32),
+        bias_p=col((c.bias_p for c in cfgs), torch.float32),
+        bias_q=col((c.bias_q for c in cfgs), torch.float32),
     )
 
 

@@ -2,10 +2,12 @@
 ``core/simulator.py``), batched over trajectories.
 
 One synchronous round (t -> t+1), as in the reference:
-  1. the topology evolves; a crashing node kills its resident walks;
-  2. every surviving walk hops to a uniform available neighbor;
+  1. the topology evolves (scheduled edge cuts included); a crashing
+     node kills its resident walks; a mobile Pac-Man hops (stream tag 7);
+  2. every surviving walk hops to a uniform available neighbor, or by
+     its zoo variant's rule (``zoo.variants.move_variant``);
   3. walk-level failures strike (probabilistic, burst, Byzantine,
-     Pac-Man);
+     Pac-Man: one node, several, or the mobile positions);
   4. every visited node records return-time samples and last-seen times;
   5. the chosen walk's node computes theta-hat (Eq. 1) and decides
      (DecAFork fork, DecAFork+ fork or terminate, MissingPerson timeout
@@ -80,6 +82,8 @@ class SimState(NamedTuple):
     key: torch.Tensor  # (batch, 2) threefry key words
     graph: GraphState
     theta_hist: torch.Tensor  # (batch, n, TB) float32 auto_eps warm-up histogram
+    # (batch, 1+K) int32 Pac-Man positions of a mobile run, else None
+    pacman_pos: torch.Tensor | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +92,9 @@ class Setup:
     the device, the static protocol config and the per-trajectory rows.
     ``steps`` (the run's budget) trims the gather estimator's bins;
     ``pi`` is the graph's stationary distribution when the survival is
-    analytic."""
+    analytic. ``fcfg`` is the batch's first failure config, padded: its
+    static fields (``pacman_mobile``, the schedule widths) are the
+    batch's."""
 
     neighbors: torch.Tensor  # (n, D) int32
     degrees: torch.Tensor  # (n,) int32
@@ -99,6 +105,7 @@ class Setup:
     steps: int
     partitionable: bool = True
     pi: torch.Tensor | None = None  # (n,) float32
+    fcfg: flr.FailureConfig = flr.FailureConfig()
 
     @property
     def n(self) -> int:
@@ -112,6 +119,8 @@ def make_setup(graph: Graph, pcfgs, fcfgs, steps: int, device, partitionable=Tru
     pcfg = pcfgs[0]
     if any(p.static_fields != pcfg.static_fields for p in pcfgs):
         raise ValueError("trajectories of one batch must share the static protocol fields")
+    if any(f.static_fields != fcfgs[0].static_fields for f in fcfgs):
+        raise ValueError("trajectories of one batch must share the static failure fields")
     for p in pcfgs:
         prt.check_ported(p)
     for f in fcfgs:
@@ -133,6 +142,7 @@ def make_setup(graph: Graph, pcfgs, fcfgs, steps: int, device, partitionable=Tru
             torch.as_tensor(stationary_distribution(graph), dtype=torch.float32, device=device)
             if pcfg.analytic_survival else None
         ),
+        fcfg=flr.pad_bursts(list(fcfgs))[0],
     )
 
 
@@ -146,6 +156,12 @@ def init_state(keys: torch.Tensor, setup: Setup) -> SimState:
     walks = wlk.init_walks(
         setup.prows.z0, W, n, sub[:, 0], partitionable=setup.partitionable
     )
+    if pcfg.walk_variant != "uniform":
+        # the zoo package (which registers its experiment with the api)
+        # loads only when a variant runs
+        from repro_torch.zoo.variants import init_variant_state
+
+        walks = init_variant_state(walks, pcfg)
     if pcfg.algorithm == "missingperson":
         # paper: L_{i,l}(0) = 0 for every initial id at every node
         ids = torch.arange(W, device=keys.device).view(1, 1, W)
@@ -168,6 +184,9 @@ def init_state(keys: torch.Tensor, setup: Setup) -> SimState:
         graph=init_graph_state(batch, n, D, keys.device),
         theta_hist=torch.zeros(
             (batch, n, prt.theta_bins(pcfg)), dtype=torch.float32, device=keys.device
+        ),
+        pacman_pos=(
+            flr.initial_pacman_positions(setup.frows) if setup.fcfg.pacman_mobile else None
         ),
     )
 
@@ -256,11 +275,11 @@ def _decafork_tail(ws, last_seen, t, theta, chosen, fork_mask, term_mask):
 
 
 def _round_result(state, ws, last_seen, rts, byz_state, gs, theta_hist, n_failed,
-                  n_forks, n_terms, fork_parent, theta_mean, term_mask):
+                  n_forks, n_terms, fork_parent, theta_mean, term_mask, pacman_pos=None):
     """The next state and the round's outputs."""
     new = SimState(
         t=state.t + 1, walks=ws, last_seen=last_seen, rts=rts, byz_state=byz_state,
-        key=state.key, graph=gs, theta_hist=theta_hist,
+        key=state.key, graph=gs, theta_hist=theta_hist, pacman_pos=pacman_pos,
     )
     out = StepOutputs(
         z=ws.active.sum(dim=1, dtype=torch.int32),
@@ -294,18 +313,33 @@ def protocol_step_unfused(state: SimState, setup: Setup):
     ws = state.walks
     n_before = ws.active.sum(dim=1, dtype=torch.int32)
 
-    # 1. topology; a crashing node kills its resident walks
+    # 1. topology (scheduled edge cuts included); a crashing node kills
+    # its resident walks
     gs = flr.step_topology(state.graph, t, frows, k_topo, nbr, setup.mirror, partitionable=part)
     ws = ws._replace(active=flr.kill_resident_walks(ws.active, ws.pos, gs.node_up))
-    # 2. movement over the available edges
-    ws = wlk.move_walks(ws, nbr, deg, k_move, availability(gs, nbr, deg), partitionable=part)
+    avail = availability(gs, nbr, deg)
+    # 1b. a mobile Pac-Man hops over the same live topology, on its own
+    # stream (tag 7)
+    pac_pos = state.pacman_pos
+    if setup.fcfg.pacman_mobile:
+        k_pac = prng.fold_in_time(state.key, t, 7)
+        pac_pos = flr.step_mobile_pacman(pac_pos, t, frows, k_pac, nbr, avail,
+                                         partitionable=part)
+    # 2. movement over the available edges (the zoo's variants by their rule)
+    if pcfg.walk_variant == "uniform":
+        ws = wlk.move_walks(ws, nbr, deg, k_move, avail, partitionable=part)
+    else:
+        from repro_torch.zoo.variants import move_variant
+
+        ws = move_variant(ws, pcfg, prows, nbr, deg, k_move, avail, gs.node_up,
+                          partitionable=part)
     # 3. walk-level threat models
     active = flr.apply_probabilistic_failures(ws.active, t, frows, k_pfail, partitionable=part)
     active = flr.apply_burst_failures(active, t, frows, k_burst, partitionable=part)
     active, byz_state = flr.step_byzantine(
         active, ws.pos, t, state.byz_state, frows, k_byz, partitionable=part
     )
-    active = flr.apply_pacman(active, ws.pos, t, frows)
+    active = flr.apply_pacman(active, ws.pos, t, frows, pac_pos)
     ws = ws._replace(active=active)
     n_failed = n_before - active.sum(dim=1, dtype=torch.int32)
 
@@ -378,7 +412,7 @@ def protocol_step_unfused(state: SimState, setup: Setup):
             n_forks = zeros
             fork_parent = torch.full_like(ws.pos, -1)
     return _round_result(state, ws, last_seen, rts, byz_state, gs, theta_hist, n_failed,
-                         n_forks, n_terms, fork_parent, theta_mean, term_mask)
+                         n_forks, n_terms, fork_parent, theta_mean, term_mask, pac_pos)
 
 
 def protocol_step_fused(state: SimState, setup: Setup):
@@ -448,7 +482,7 @@ def protocol_step_fused(state: SimState, setup: Setup):
 def protocol_step(state: SimState, setup: Setup, decision: RoundDecision | None = None):
     """One round, dispatched by :func:`round_impl_decision`."""
     if decision is None:
-        decision = round_impl_decision(setup.pcfg)
+        decision = round_impl_decision(setup.pcfg, setup.fcfg)
     if decision.fused:
         return protocol_step_fused(state, setup)
     return protocol_step_unfused(state, setup)
@@ -459,7 +493,7 @@ def run_rounds(state: SimState, setup: Setup, length: int, spec: OutputSpec = SC
     """Advance ``length`` rounds; returns the final state and the
     recorded outputs with (batch, length, ...) fields."""
     if decision is None:
-        decision = round_impl_decision(setup.pcfg)
+        decision = round_impl_decision(setup.pcfg, setup.fcfg)
     rounds = []  # only the recorded fields of each round are kept
     for _ in range(length):
         state, out = protocol_step(state, setup, decision)

@@ -23,6 +23,10 @@ class WalkState(NamedTuple):
     pos: torch.Tensor  # (batch, W) int32 current node
     active: torch.Tensor  # (batch, W) bool
     track: torch.Tensor  # (batch, W) int32 last_seen column of the walk
+    # the zoo's walk-variant memory (None unless the variant needs it, so
+    # the default round carries nothing more)
+    prev: torch.Tensor | None = None  # (batch, W) int32 previous node ('biased')
+    bloom: torch.Tensor | None = None  # (batch, W, bloom_bits) bool history ('bloom')
 
 
 def init_walks(
@@ -105,6 +109,18 @@ def _scatter_drop(base: torch.Tensor, index: torch.Tensor, src) -> torch.Tensor:
     return wide[..., :-1].contiguous()
 
 
+def _fork_copy(col: torch.Tensor, safe_slot: torch.Tensor, ev_parent: torch.Tensor):
+    """``col.at[safe_slot].set(col[ev_parent], mode="drop")`` over the
+    slot axis (1) of a (batch, W, ...) column: each forked slot takes its
+    parent's value."""
+    idx = ev_parent.long().reshape(ev_parent.shape + (1,) * (col.dim() - 2))
+    src = torch.gather(col, 1, idx.expand(ev_parent.shape + col.shape[2:]))
+    wide = torch.cat([col, col[:, :1]], dim=1)
+    dst = safe_slot.long().reshape(safe_slot.shape + (1,) * (col.dim() - 2))
+    wide.scatter_(1, dst.expand(src.shape), src)
+    return wide[:, :-1].contiguous()
+
+
 def allocate_fork_slots(active: torch.Tensor, ev_mask: torch.Tensor):
     """Pair the r-th fork event with the r-th free slot (capacity-capped,
     overflow dropped); ``ev_mask`` is (batch, E) for any number E of
@@ -146,7 +162,9 @@ def execute_forks(
     ``ev_track`` and ``last_seen`` is left alone. ``ev_parent`` defaults
     to the event index. Returns ``(WalkState, last_seen, n_forks,
     fork_parent)``; ``fork_parent[s]`` is the parent slot of a walk
-    forked into slot s this round, else -1."""
+    forked into slot s this round, else -1. The zoo's variant memory
+    (``prev``, ``bloom``) forks with the slot: the child takes its
+    parent's column."""
     batch, W = ws.pos.shape
     safe_slot, ev_ok, ev_slot = allocate_fork_slots(ws.active, ev_mask)
     if ev_parent is None:
@@ -168,8 +186,11 @@ def execute_forks(
         last_seen.view(-1).index_put_((flat.reshape(-1),), add.reshape(-1), accumulate=True)
     else:
         track = _scatter_drop(ws.track, safe_slot, ev_track)
+    prev = ws.prev if ws.prev is None else _fork_copy(ws.prev, safe_slot, ev_parent)
+    bloom = ws.bloom if ws.bloom is None else _fork_copy(ws.bloom, safe_slot, ev_parent)
     n_forks = ev_ok.sum(dim=-1, dtype=torch.int32)
-    return WalkState(pos=pos, active=active, track=track), last_seen, n_forks, fork_parent
+    return (WalkState(pos=pos, active=active, track=track, prev=prev, bloom=bloom),
+            last_seen, n_forks, fork_parent)
 
 
 def execute_grid_forks(

@@ -177,8 +177,15 @@ def test_protocol_config_validation():
     for ported in (dict(algorithm="missingperson"), dict(algorithm="none"),
                    dict(auto_eps=True), dict(analytic_survival=True)):
         tprt.check_ported(tprt.ProtocolConfig(**ported))
+    # the zoo's walk variants are ported; walk payloads still raise
+    for variant in tprt.WALK_VARIANTS:
+        tprt.check_ported(tprt.ProtocolConfig(walk_variant=variant))
+    from repro_torch.api import Experiment
+    from repro_torch.graphs import make_graph
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tprt.check_ported(tprt.ProtocolConfig(walk_variant="jump"))
+        Experiment(graph=make_graph("ring", 8), protocol=tprt.ProtocolConfig(), steps=5,
+                   device="cpu", payload=object())
 
 
 FAIL = dict(burst_times=(70, 5), burst_sizes=(3, 2), p_fail=0.2, p_fail_start=10,
@@ -242,7 +249,19 @@ def test_failure_config_guards_and_padding():
     assert padded[0].burst_times == (5, -1, -1) and padded[0].burst_sizes == (2, 0, 0)
     with pytest.raises(ValueError):
         tflr.FailureConfig(burst_times=(1,), burst_sizes=())
-    for bad in (dict(pacman_mobile=True), dict(pacman_nodes=(3,)),
+    # the zoo's attacks are ported (padded like every schedule); durable
+    # sweeps (store=) still raise
+    for zoo in (dict(pacman_mobile=True), dict(pacman_nodes=(3,)),
                 dict(edge_cut_times=(5,), edge_cut_thresholds=(3,))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tflr.check_ported(tflr.FailureConfig(**bad))
+        tflr.check_ported(tflr.FailureConfig(**zoo))
+    padded = tflr.pad_bursts([tflr.FailureConfig(pacman_nodes=(3, 4)), tflr.FailureConfig(),
+                              tflr.FailureConfig(edge_cut_times=(5,), edge_cut_thresholds=(3,))])
+    assert padded[1].pacman_nodes == (-1, -1) and padded[0].edge_cut_times == (-1,)
+    assert padded[0].edge_cut_thresholds == (-1,) and padded[2].pacman_nodes == (-1, -1)
+    from repro_torch.api import Experiment
+    from repro_torch.graphs import make_graph
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Experiment(graph=make_graph("ring", 8), protocol=tprt.ProtocolConfig(), steps=5,
+                   device="cpu").sweep([(tprt.ProtocolConfig(), tflr.FailureConfig())],
+                                       seeds=1, store="results")

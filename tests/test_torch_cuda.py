@@ -293,6 +293,44 @@ def test_cuda_mixed_sweep_matches_cpu(cuda):
         torch.testing.assert_close(got.theta_mean.cpu(), want.theta_mean, rtol=1e-6, atol=1e-6)
 
 
+def test_cuda_zoo_grid_matches_cpu(cuda):
+    """A small zoo grid (the four defenses against the four attacks on a
+    24-node community graph) on the card equals the same grid on the CPU
+    bitwise in its integer outputs; every group runs unfused, launching
+    round_update once per round (and once in its capture's warm-up
+    round) and whole_round never."""
+    from repro_torch.api import Experiment
+    from repro_torch.api import plan as plan_mod
+
+    steps, n = 60, 24
+    cfg = {"experiment": "zoo", "n": n, "steps": steps, "outputs": "full",
+           "graph_kwargs": {"k_bridges": 2},
+           "protocol": dict(algorithm="decafork+", eps=3.0, eps2=7.57, estimator_impl="auto",
+                            **CAPTURE_BASE),
+           "defenses": ("uniform", "jump", "biased", "bloom"),
+           "attacks": ("none", ("mobile_pacman", {"hop_prob": 0.5, "start": 20}),
+                       ("multi_pacman", {"nodes": (0, n // 2), "start": 20}),
+                       ("edge_cut", {"time": 20, "threshold": n // 2}))}
+    runs = {}
+    plan_mod.clear_cache()
+    try:
+        for dev in ("cpu", cuda):
+            exp = Experiment.from_config({**cfg, "device": dev})
+            groups = len(exp.plan().groups())
+            assert not any(d.fused for _, _, d in exp.plan().round_decisions())
+            before = (whole_round.launches, round_update.launches)
+            runs[str(dev)] = exp.sweep(seeds=3)
+            grew = (whole_round.launches - before[0], round_update.launches - before[1])
+    finally:
+        plan_mod.clear_cache()
+    assert grew == (0, groups * (steps + 1))
+    for name in runs["cpu"].names:
+        got, want = runs["cuda"][name], runs["cpu"][name]
+        for f in ("z", "forks", "terms", "failures", "fork_parent", "terminated"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), (name, f)
+        torch.testing.assert_close(got.theta_mean.cpu(), want.theta_mean, rtol=1e-6, atol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # captured execution: rounds and decode replayed as CUDA graphs
 # ---------------------------------------------------------------------------
@@ -301,6 +339,8 @@ CAPTURE_BASE = dict(z0=6, max_walks=16, rt_bins=64, protocol_start=10)
 
 
 def _capture_cases():
+    import dataclasses
+
     from repro_torch.core import FailureConfig, ProtocolConfig
 
     fc = FailureConfig(burst_times=(15,), burst_sizes=(2,), p_fail=0.01, byzantine_node=2,
@@ -314,6 +354,16 @@ def _capture_cases():
         "auto_eps": (ProtocolConfig("decafork+", eps=3.0, eps2=7.57, auto_eps=True,
                                     estimator_impl="pallas", auto_min_samples=3,
                                     **CAPTURE_BASE), fc, theta_sums),
+        # the zoo: unfused rounds through the round_update kernel
+        "bloom": (ProtocolConfig("decafork+", eps=3.0, eps2=7.57, walk_variant="bloom",
+                                 bloom_bits=32, estimator_impl="auto", **CAPTURE_BASE),
+                  dataclasses.replace(fc, edge_cut_times=(12,), edge_cut_thresholds=(12,)),
+                  round_update),
+        "mobile_pacman": (ProtocolConfig("decafork+", eps=3.0, eps2=7.57, walk_variant="jump",
+                                         p_jump=0.2, estimator_impl="auto", **CAPTURE_BASE),
+                          dataclasses.replace(fc, pacman_mobile=True, pacman_nodes=(7,),
+                                              pacman_hop_prob=0.5, pacman_start_time=5),
+                          round_update),
     }
 
 
@@ -352,13 +402,15 @@ def _device_launches(fn):
     return out
 
 
-@pytest.mark.parametrize("case", ["fused", "missingperson", "auto_eps"])
+@pytest.mark.parametrize("case", ["fused", "missingperson", "auto_eps", "bloom",
+                                  "mobile_pacman"])
 def test_cuda_captured_run_is_the_eager_run(cuda, case):
     """A captured run equals the eager loop bitwise (integers, final carry,
-    theta_mean), twice with other keys and thresholds through one
-    capture. The captured graph holds the kernel once per round
-    (whole_round for the fused group, theta_sums for auto_eps, no kernel
-    for MissingPerson); its counter grows by the replayed rounds, plus
+    theta_mean, the zoo's Bloom filters and Pac-Man positions), twice with
+    other keys and thresholds through one capture. The captured graph
+    holds the kernel once per round (whole_round for the fused group,
+    theta_sums for auto_eps, round_update for the zoo's unfused groups,
+    no kernel for MissingPerson); its counter grows by the replayed rounds, plus
     the capture's one warm-up round, and the device records as many
     launches as the counter adds per replayed round."""
     import dataclasses
@@ -370,7 +422,9 @@ def test_cuda_captured_run_is_the_eager_run(cuda, case):
 
     pcfg, fcfg, kern = _capture_cases()[case]
     g = make_graph("erdos_renyi", 24, seed=0)
-    steps, seeds = 37, 3
+    # the zoo's rounds hold up to ~3,100 kernel nodes: 25 of them stay
+    # well below the ~110,000 records a profiler window kept on the card
+    steps, seeds = (25 if case in ("bloom", "mobile_pacman") else 37), 3
     runner = None
     for key, eps in ((0, pcfg.eps), (1, pcfg.eps + 0.5)):
         p = dataclasses.replace(pcfg, eps=eps)

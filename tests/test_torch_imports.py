@@ -53,6 +53,10 @@ def test_port_imports_without_jax():
         "import repro_torch.models, repro_torch.launch.serve, repro_torch.configs\n"
         "import repro_torch.sweep, repro_torch.api.results, repro_torch.api.placement\n"
         "import repro_torch.graphs.spectral, repro_torch.kernels.capture\n"
+        "import repro_torch.zoo, repro_torch.zoo.attacks, repro_torch.zoo.variants\n"
+        "import repro_torch.core.theory, repro_torch.core.irwin_hall, repro_torch.api.registry\n"
+        "import repro_torch.figures.run, repro_torch.figures.common\n"
+        "from repro_torch.api import Experiment, registry; assert 'zoo' in registry.names()\n"
         "from repro_torch.api import cache_stats; from repro_torch.api.plan import executable\n"
         "from repro_torch.configs import ARCH_IDS, get_config\n"
         "[get_config(a) for a in ARCH_IDS + ('paper_rwsgd',)]\n"

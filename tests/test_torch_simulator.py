@@ -199,9 +199,14 @@ def test_config_conversion_and_guards():
                                     p_fail=np.float32(0.25)))
     assert f.burst_times == (5, 9) and f.p_fail == 0.25
     g = make_graph("ring", 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Experiment(graph=g, protocol=ProtocolConfig(walk_variant="jump"), steps=5,
-                   device="cpu")
+    # the zoo's variants and attacks pass the Plan's checks; payloads and
+    # durable sweeps still raise
+    jump = Experiment(graph=g,
+                      protocol=ProtocolConfig(walk_variant="jump", estimator_impl="auto"),
+                      failures=FailureConfig(pacman_mobile=True, pacman_nodes=(3,)),
+                      steps=5, device="cpu")
+    (_, _, decision), = jump.plan().round_decisions()
+    assert decision.reason == "walk_variant 'jump' has no fused round"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Experiment(graph=g, protocol=ProtocolConfig(), steps=5, device="cpu", payload=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
