@@ -23,7 +23,9 @@ Phases, each printed on its own line:
    on numpy-seeded inputs at its path's shapes. The round kernels
    bitwise (batch 50, n 100, C = W = 64, B = 1024, D = 8; whole_round
    also at phase 7's 200 rows; round_update / theta_sums also at
-   n = 100,000, batch 1); flash_attention at yi-6b's prefill (batch 4,
+   n = 100,000, batch 1; whole_round and theta_sums also at phase 9's
+   batch 8 on its other graphs: regular n 50 and 200, complete, Erdos-Renyi
+   and power-law n 100); flash_attention at yi-6b's prefill (batch 4,
    S 512, H 32, KV 4, D 128, bf16, tolerance 3e-2; the same batch and S
    at D 64 and D 256), paper-rwsgd's (S 128, H 8, KV 4, D 32, f32, 2e-4),
    yi-6b's float32 gate's (its prefill's shape in f32, 2e-4) and a
@@ -122,8 +124,8 @@ Phases, each printed on its own line:
    group's round must hold its kernel once (round_update) and launch it
    once per round plus its capture's warm-up round; the ``none`` rows
    must survive near Z0. Then the first 200 rounds x 4 seeds of every
-   group on cuda against the CPU (run in a thread beside the sweep):
-   integer outputs and the final carry (``prev``, ``bloom``,
+   group on cuda against the CPU (its side computed by one spawned
+   process while the card runs phases 7-9): integer outputs and the final carry (``prev``, ``bloom``,
    ``pacman_pos`` included) bitwise, theta_mean within 1e-6; and for a
    bloom group and a mobile Pac-Man group the captured run against the
    eager loop, bitwise;
@@ -135,7 +137,13 @@ Phases, each printed on its own line:
    (whole_round in the fused groups, round_update in unfused DecAFork
    groups, theta_sums in ``auto_eps``'s auto runs) plus one warm-up round
    per new capture. Their result files go to
-   ``chiprun_out/figures_smoke/``.
+   ``chiprun_out/figures_smoke/``. Then each driver's groups, on its own
+   graphs (Fig. 4's n 50 / 200, Fig. 6's complete, Erdos-Renyi and
+   power-law, ``auto_eps``'s five) with decisions from step 20 and its
+   bursts, Byzantine node, crash or Pac-Man moved inside the window, for
+   their first 120 rounds x 2 seeds on cuda against the CPU (a scenario
+   an earlier driver ran on the same graph is not rerun): integer
+   outputs and the final carry bitwise, theta_mean within 1e-6.
 
 Before the last line it prints the card's name and power limit, then one
 JSON object with every kernel's launches, error and times; the last line
@@ -197,10 +205,26 @@ FIGURE_STEPS = 2400
 Z_BAND = (PAPER["z0"] / 2, 2 * PAPER["z0"])  # mean Z after the start must lie here
 # phase 8: Fig. 9's grid as benchmarks/fig9_zoo.py sets it under BENCH_FULL=1
 ZOO = dict(n=64, steps=4500, seeds=16, protocol_start=1000, parity_steps=200, parity_seeds=4)
-# phase 9: the port's figure drivers (name, module); Figs. 1 and 5 are phase 7
-FIGURES = (("fig2", "fig2_probabilistic"), ("fig3", "fig3_byzantine"), ("fig4", "fig4_nodes"),
-           ("fig6", "fig6_graphs"), ("fig7", "fig7_topology"), ("theory", "theory_bounds"),
-           ("auto_eps", "auto_eps"))
+# phase 9: the port's figure drivers (name, module, the events of their
+# parity window: decisions, bursts and each driver's own attack moved into
+# its first FIGURE_PARITY rounds); Figs. 1 and 5 are phase 7
+_EVENTS = dict(proto_start=20, bursts=(50, 90))
+FIGURES = (("fig2", "fig2_probabilistic", _EVENTS),
+           ("fig3", "fig3_byzantine", dict(proto_start=20, byz_at=35)),
+           ("fig4", "fig4_nodes", _EVENTS), ("fig6", "fig6_graphs", _EVENTS),
+           ("fig7", "fig7_topology", dict(proto_start=20, crash_at=50)),
+           ("theory", "theory_bounds", _EVENTS),
+           ("auto_eps", "auto_eps", dict(_EVENTS, auto_start=35)))
+FIGURE_PARITY = dict(steps=120, seeds=2)  # rounds x seeds of phase 9's cuda-vs-CPU window
+# the graphs phase 9 runs besides phase 3's (family, n, kwargs): Fig. 4's
+# n 50 / 200, Fig. 6's complete, Erdos-Renyi and power-law (auto_eps's
+# too); phase 2 holds whole_round and theta_sums to their plain versions
+# on each at the drivers' batch
+FIGURE_GRAPHS = (("regular", 50, dict(degree=8)), ("regular", 200, dict(degree=8)),
+                 ("complete", 100, {}), ("erdos_renyi", 100, {}), ("power_law", 100, dict(m=4)))
+FIGURE_BATCH = 8  # the drivers' seeds at their reduced setting
+CPU_THREADS = 4  # torch threads of the process that runs the parity's CPU side
+CPU_TIMEOUT_S = 600  # the longest phases 8 and 9 wait for that process's result
 
 
 def log(phase: str, **kv) -> None:
@@ -327,6 +351,7 @@ def obs_bytes(batch, n, C, B, W, sums_rows) -> int:
 def check_kernels(rng, graph, dev, large_n=100_000):
     import torch
 
+    from repro_torch.graphs import make_graph
     from repro_torch.kernels import (
         round_update, round_update_plain, theta_sums, theta_sums_plain,
         whole_round, whole_round_plain,
@@ -415,6 +440,23 @@ def check_kernels(rng, graph, dev, large_n=100_000):
             rows.append(ent)
         else:
             rows[-1]["batch200"] = ent
+
+    # whole_round and theta_sums on phase 9's other graphs at its batch (the
+    # drivers' 8 seeds), bitwise their plain versions on the card
+    for fam, nn, kw in FIGURE_GRAPHS:
+        g = make_graph(fam, nn, seed=0, **kw)
+        x = whole_round_inputs(rng, FIGURE_BATCH, nn, C, B, g.max_degree, W, K, g, dev)
+        err = max(max_abs_err(whole_round(*clone(x), decafork_plus=plus),
+                              whole_round_plain(*clone(x), plus)) for plus in (False, True))
+        x = observation_inputs(rng, FIGURE_BATCH, nn, C, B, W, 70, dev)
+        ls, hist, total, t = x[0], x[1], x[2], x[8]
+        err_ts = max_abs_err((theta_sums(ls, hist, total, t),),
+                             (theta_sums_plain(ls, hist, total, t),))
+        shape = f"{fam},batch={FIGURE_BATCH},n={nn},D={g.max_degree}"
+        for r, e in ((rows[2], err), (rows[0], err_ts)):
+            r.setdefault("figure_graphs", []).append(dict(shape=shape, max_abs_err=e))
+        log("kernels", kernel="whole_round,theta_sums", shape=shape, max_abs_err=max(err, err_ts),
+            bitwise=True)
     return rows
 
 
@@ -1543,14 +1585,110 @@ def expected_launches(slots_before, rounds_by_slot):
     return want
 
 
-def zoo_phase(steps, seeds):
+def sweep_groups(graph, scenarios, steps, seeds, device):
+    """Every sweep group of ``scenarios`` for ``steps`` rounds x ``seeds``
+    seeds on ``device``: [(group indices, final state, outputs)]."""
+    from repro_torch.api import Experiment
+    from repro_torch.figures import common
+
+    plan = Experiment(graph=graph, scenarios=scenarios, steps=steps, outputs="full",
+                      device=device, partitionable=common.PARTITIONABLE).plan()
+    return [(idxs, *plan.sweep_group([scenarios[i] for i in idxs], seeds=seeds))
+            for _sig, idxs in plan.groups()]
+
+
+def zoo_experiment(steps, device):
+    """Fig. 9's grid at phase 8's setting (``ZOO``), ``steps`` rounds."""
+    from repro_torch.figures import fig9_zoo
+
+    z = ZOO
+    return fig9_zoo.experiment(device=device, steps=steps, proto_start=z["protocol_start"],
+                               attack_at=fig9_zoo.attack_time(z["steps"], z["protocol_start"]),
+                               n=z["n"])
+
+
+def figure_parity_cases():
+    """[(driver, graph, scenarios)] of phase 9's parity window: each
+    driver's groups with its ``FIGURES`` events; a scenario an earlier
+    driver ran on the same graph is left out."""
+    import importlib
+
+    cases, seen = [], set()
+    for name, module, events in FIGURES:
+        mod = importlib.import_module(f"repro_torch.figures.{module}")
+        for graph, scen in mod.scenarios(**events):
+            keys = [(graph.neighbors.tobytes(), repr((s.pcfg, s.fcfg))) for s in scen]
+            scen = [s for s, key in zip(scen, keys) if key not in seen]
+            seen.update(keys)
+            if scen:
+                cases.append((name, graph, scen))
+    return cases
+
+
+def cpu_runs(what):
+    """The CPU side of phase 8's (``"zoo"``) or phase 9's (``"figures"``)
+    parity, run in a child process (:func:`start_cpu_runs`) while the card
+    runs the phases: one :func:`sweep_groups` list per case."""
+    import torch
+
+    from repro_torch.utils.tree import tree_leaves
+
+    torch.set_num_threads(CPU_THREADS)
+    if what == "zoo":
+        exp = zoo_experiment(ZOO["parity_steps"], "cpu")
+        cases = [(exp.graph, exp.scenarios, ZOO["parity_steps"], ZOO["parity_seeds"])]
+    else:
+        cases = [(graph, scen, FIGURE_PARITY["steps"], FIGURE_PARITY["seeds"])
+                 for _name, graph, scen in figure_parity_cases()]
+    # plain tuples and dicts of tensors cross the process boundary
+    return [[(idxs, tuple(tree_leaves(final)), {f: getattr(outs, f) for f in outs._fields})
+             for idxs, final, outs in sweep_groups(*case, "cpu")] for case in cases]
+
+
+def start_cpu_runs():
+    """One spawned process (it has its own executable cache and no CUDA
+    context) that computes :func:`cpu_runs` for phase 8, then phase 9,
+    while the card runs phases 7-9: (pool, {what: pending result}); the
+    caller terminates the pool."""
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    return pool, {what: pool.apply_async(cpu_runs, (what,)) for what in ("zoo", "figures")}
+
+
+def group_parity(graph, scenarios, steps, seeds, label, cpu):
+    """Every sweep group of ``scenarios`` for its first ``steps`` rounds x
+    ``seeds`` seeds on cuda (the kernels, captured) against ``cpu``, the
+    same groups on the CPU from :func:`cpu_runs` (the kernels' plain
+    versions): integer outputs and the final carry (the variants'
+    ``prev`` / ``bloom`` columns and the Pac-Man positions included)
+    bitwise, theta_mean within 1e-6. Returns the largest theta_mean gap
+    and, per group, (scenarios, cuda final state, cuda outputs)."""
+    import numpy as np
+
+    err, runs = 0.0, []
+    cuda = sweep_groups(graph, scenarios, steps, seeds, "cuda")
+    if [c[0] for c in cuda] != [c[0] for c in cpu]:
+        raise AssertionError(f"{label}: the CPU grouped otherwise")
+    for (idxs, gs, go), (_, ws, wo) in zip(cuda, cpu):
+        group = [scenarios[i] for i in idxs]
+        name = f"{label} {','.join(s.name for s in group)}"
+        same_leaves(gs, ws, f"{name}: final carry")
+        for f in INT_FIELDS:
+            same_leaves((getattr(go, f),), (wo[f],), f"{name}: {f}")
+        theta, want = go.theta_mean.cpu().numpy(), wo["theta_mean"].numpy()
+        np.testing.assert_allclose(theta, want, rtol=1e-6, atol=1e-6, err_msg=name)
+        err = max(err, float(np.abs(theta - want).max()))
+        runs.append((group, gs, go))
+    return err, runs
+
+
+def zoo_phase(steps, seeds, cpu):
     """Phase 8: Fig. 9's grid (``benchmarks/fig9_zoo.py`` under
     ``BENCH_FULL=1``) through the port's driver's experiment, one sweep on
-    cuda, each group captured and timed; then parity and captured-vs-eager
-    at 200 rounds. The parity's CPU side runs in a thread beside the
-    device-bound sweep (the host waits on the card meanwhile)."""
-    from concurrent.futures import ThreadPoolExecutor
-
+    cuda, each group captured and timed; then parity against ``cpu``
+    (the pending :func:`cpu_runs` of ``"zoo"``) and captured-vs-eager at
+    200 rounds."""
     import numpy as np
     import torch
 
@@ -1560,14 +1698,11 @@ def zoo_phase(steps, seeds):
 
     z = ZOO
     attack_at = fig9_zoo.attack_time(z["steps"], z["protocol_start"])
-    exp = fig9_zoo.experiment(device="cuda", steps=steps, proto_start=z["protocol_start"],
-                              attack_at=attack_at, n=z["n"])
+    exp = zoo_experiment(steps, "cuda")
     plan = exp.plan()
     scen = exp.scenarios
     decisions = {tuple(idxs): d for _sig, idxs, d in plan.round_decisions()}
     groups, stacked = [], plan.sweep_stacked
-    pool = ThreadPoolExecutor(max_workers=1)
-    cpu_runs = pool.submit(zoo_cpu_runs, exp, z["parity_steps"], z["parity_seeds"])
 
     def timed(scenarios, **kw):
         slots = set(plan_mod._EXECUTABLES)
@@ -1577,10 +1712,7 @@ def zoo_phase(steps, seeds):
         out = stacked(scenarios, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        # the CPU thread adds its own slots meanwhile: this group's is the
-        # new one on the card
-        (key,) = [k for k, r in list(plan_mod._EXECUTABLES.items())
-                  if k not in slots and r.setup.neighbors.is_cuda]
+        (key,) = set(plan_mod._EXECUTABLES) - slots
         runner = plan_mod._EXECUTABLES[key]
         grew = {k.__name__: k.launches - before[k.__name__] for k in KERNELS}
         want = expected_launches(slots, {key: steps})
@@ -1609,11 +1741,7 @@ def zoo_phase(steps, seeds):
     plan.sweep_stacked = timed
     for k in KERNELS:  # this path's counts start here
         k.launches = 0
-    try:
-        res = plan.sweep(seeds=seeds)
-        cpu = cpu_runs.result()
-    finally:
-        pool.shutdown()
+    res = plan.sweep(seeds=seeds)
     counts = {k.__name__: k.launches for k in KERNELS}
     for idxs, d in decisions.items():
         if d.fused:
@@ -1635,53 +1763,31 @@ def zoo_phase(steps, seeds):
                                          Z_BAND[0] <= per[s.name]["mean_z_after_start"] <= Z_BAND[1]):
             raise AssertionError(f"{s.name}: survival {per[s.name]['survival']}, "
                                  f"mean Z after start {per[s.name]['mean_z_after_start']}")
-    parity = zoo_parity(exp, z["parity_steps"], z["parity_seeds"], cpu)
+    t0 = time.perf_counter()
+    (cpu,) = cpu.get(CPU_TIMEOUT_S)
+    log("zoo", cpu_side_wait_s=f"{time.perf_counter() - t0:.1f}")
+    parity = zoo_parity(z["parity_steps"], z["parity_seeds"], cpu)
     return dict(steps=steps, seeds=seeds, attack_at=attack_at, groups=groups, scenarios=per,
                 parity=parity), counts
 
 
-def zoo_cpu_runs(exp, steps, seeds):
-    """The zoo grid's first ``steps`` rounds x ``seeds`` seeds on the CPU,
-    per group: group indices -> (final state, outputs)."""
-    from repro_torch.api import Experiment
-
-    plan = Experiment(graph=exp.graph, scenarios=exp.scenarios, steps=steps, outputs="full",
-                      device="cpu").plan()
-    return {tuple(idxs): plan.sweep_group([exp.scenarios[i] for i in idxs], seeds=seeds)
-            for _sig, idxs in plan.groups()}
-
-
-def zoo_parity(exp, steps, seeds, cpu):
+def zoo_parity(steps, seeds, cpu):
     """The zoo grid's first ``steps`` rounds x ``seeds`` seeds, every group
-    on cuda against the CPU's (``cpu``, from :func:`zoo_cpu_runs`):
-    integer outputs and the final carry (the variants' ``prev`` /
-    ``bloom`` columns and the Pac-Man positions included) bitwise,
-    theta_mean within 1e-6; then for a ``bloom`` group and a mobile
-    Pac-Man group the captured run against the eager loop (outputs and
-    final carry bitwise)."""
-    import numpy as np
+    on cuda against the CPU's (``cpu``; :func:`group_parity`); then for a
+    ``bloom`` group and a mobile Pac-Man group the captured run against
+    the eager loop (outputs and final carry bitwise)."""
     import torch
 
-    from repro_torch.api import Experiment
     from repro_torch.core import simulator as sim
     from repro_torch.core.outputs import FULL
     from repro_torch.utils import prng
 
-    plan = Experiment(graph=exp.graph, scenarios=exp.scenarios, steps=steps, outputs="full",
-                      device="cuda").plan()
-    scen = exp.scenarios
-    err, eager = 0.0, {}
+    exp = zoo_experiment(steps, "cuda")
+    err, runs = group_parity(exp.graph, exp.scenarios, steps, seeds, "zoo parity", cpu)
+    eager = {}
     keys = prng.split(prng.key(0, device="cuda"), seeds)
-    for _sig, idxs in plan.groups():
-        group = [scen[i] for i in idxs]
-        (gs, go), (ws, wo) = plan.sweep_group(group, seeds=seeds), cpu[tuple(idxs)]
+    for group, gs, go in runs:
         label = ",".join(s.name for s in group)
-        same_leaves(gs, ws, f"zoo parity {label}: final carry")
-        for f in INT_FIELDS:
-            same_leaves((getattr(go, f),), (getattr(wo, f),), f"zoo parity {label}: {f}")
-        theta, want = go.theta_mean.cpu().numpy(), wo.theta_mean.numpy()
-        np.testing.assert_allclose(theta, want, rtol=1e-6, atol=1e-6)
-        err = max(err, float(np.abs(theta - want).max()))
         variant = group[0].pcfg.walk_variant
         mobile = group[0].fcfg.pacman_mobile
         case = "bloom" if variant == "bloom" and not mobile else "mobile_pacman" if (
@@ -1727,20 +1833,24 @@ def finite_row(row) -> bool:
     return all(math.isfinite(x) for x in nums)
 
 
-def figure_phase(steps, out):
+def figure_phase(steps, out, cpu):
     """Phase 9: each port driver of ``FIGURES`` on cuda at its reduced
     setting (``steps`` cuts its rounds where given), its CSV rows
     printed; every row finite, and each kernel launched once per round of
     the groups whose path it is (whole_round in the fused groups,
     round_update in the unfused ones, theta_sums in auto_eps's auto
-    runs), plus one warm-up round per new capture."""
+    runs), plus one warm-up round per new capture. Then each driver's
+    groups, on its own graphs and at its own widths, with its events
+    moved into the first ``FIGURE_PARITY`` rounds (:func:`figure_parity_cases`),
+    on cuda against ``cpu``, the pending :func:`cpu_runs` of ``"figures"``
+    (:func:`group_parity`)."""
     import importlib
 
     from repro_torch.api import plan as plan_mod
     from repro_torch.kernels import KERNELS
 
     res, counts = {}, {k.__name__: 0 for k in KERNELS}
-    for name, module in FIGURES:
+    for name, module, _events in FIGURES:
         mod = importlib.import_module(f"repro_torch.figures.{module}")
         kw = {} if steps is None else dict(steps=steps)
         rounds = steps or mod.STEPS
@@ -1779,6 +1889,24 @@ def figure_phase(steps, out):
                          launches={k: v for k, v in got.items() if v})
         log("figures", driver=name, steps=rounds, wall_s=f"{wall:.1f}", rows=len(rows),
             launches=res[name]["launches"], rows_finite=True)
+    t0 = time.perf_counter()
+    cpu = cpu.get(CPU_TIMEOUT_S)
+    log("figures", cpu_side_wait_s=f"{time.perf_counter() - t0:.1f}")
+    events = {name: ev for name, _module, ev in FIGURES}
+    for (name, graph, scen), want in zip(figure_parity_cases(), cpu):
+        t0 = time.perf_counter()
+        err, runs = group_parity(graph, scen, FIGURE_PARITY["steps"], FIGURE_PARITY["seeds"],
+                                 f"{name} parity", want)
+        par = res[name].setdefault("parity", dict(FIGURE_PARITY, events=events[name], groups=0,
+                                                  theta_mean_max_abs_err=0.0, wall_s=0.0))
+        par["groups"] += len(runs)
+        par["theta_mean_max_abs_err"] = max(par["theta_mean_max_abs_err"], err)
+        par["wall_s"] += time.perf_counter() - t0
+        log("figures", parity=f"{name} cuda vs cpu", graph=graph.family, n=graph.n,
+            scenarios=len(scen), groups=len(runs), events=events[name], **FIGURE_PARITY,
+            integers_final_carry="bitwise", theta_mean_max_abs_err=err)
+    for r in res.values():
+        r.setdefault("parity", "every scenario ran in an earlier driver's window")
     return res, counts
 
 
@@ -1868,23 +1996,30 @@ def main() -> int:
         fired = [b for b in PAPER["bursts"] if b < args.sweep_steps]
         log("sweep", cut=f"steps {args.sweep_steps} of the paper's {PAPER['steps']}; bursts at "
                          f"{fired} fire; n, W, B and seeds uncut")
-    sweep, sweep_counts = sweep_phase(graph, args.sweep_steps, PAPER["seeds"], main_res)
-    for k, v in sweep_counts.items():
-        counts[k] += v
-    lap("7 sweep")
-    sweep["parity"] = sweep_parity(graph)
-    lap("7 sweep parity")
-    if args.zoo_steps < ZOO["steps"]:
-        log("zoo", cut=f"steps {args.zoo_steps} of Fig. 9's {ZOO['steps']}; n, W, B, seeds uncut")
-    zoo, zoo_counts = zoo_phase(args.zoo_steps, ZOO["seeds"])
-    for k, v in zoo_counts.items():
-        counts[k] += v
-    lap("8 zoo")
-    if args.figure_steps is not None:
-        log("figures", cut=f"steps {args.figure_steps} of the drivers' reduced 4500 (fig9_zoo "
-                           "keeps its own); seeds, widths and event times uncut")
-    figures, figure_counts = figure_phase(args.figure_steps,
-                                          os.path.join(ROOT, "chiprun_out", "figures_smoke"))
+    # the CPU side of phases 8 and 9's parity, in a process beside phases 7-9
+    pool, cpu = start_cpu_runs()
+    try:
+        sweep, sweep_counts = sweep_phase(graph, args.sweep_steps, PAPER["seeds"], main_res)
+        for k, v in sweep_counts.items():
+            counts[k] += v
+        lap("7 sweep")
+        sweep["parity"] = sweep_parity(graph)
+        lap("7 sweep parity")
+        if args.zoo_steps < ZOO["steps"]:
+            log("zoo", cut=f"steps {args.zoo_steps} of Fig. 9's {ZOO['steps']}; n, W, B, seeds "
+                           "uncut")
+        zoo, zoo_counts = zoo_phase(args.zoo_steps, ZOO["seeds"], cpu["zoo"])
+        for k, v in zoo_counts.items():
+            counts[k] += v
+        lap("8 zoo")
+        if args.figure_steps is not None:
+            log("figures", cut=f"steps {args.figure_steps} of the drivers' reduced 4500 "
+                               "(fig9_zoo keeps its own); seeds, widths and event times uncut")
+        figures, figure_counts = figure_phase(
+            args.figure_steps, os.path.join(ROOT, "chiprun_out", "figures_smoke"), cpu["figures"])
+    finally:
+        pool.terminate()
+        pool.join()
     for k, v in figure_counts.items():
         counts[k] += v
     lap("9 figures")

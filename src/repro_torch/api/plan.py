@@ -26,7 +26,6 @@ import torch
 
 from repro_torch.api.results import SweepResult
 from repro_torch.core import failures as flr
-from repro_torch.core import protocol as prt
 from repro_torch.core import simulator as sim
 from repro_torch.sweep.scenario import as_pair, group_scenarios, stack_configs
 from repro_torch.utils import prng
@@ -153,13 +152,7 @@ class Plan:
         self.fcfg = experiment.failures
         self.decision = None
         if self.pcfg is not None:
-            prt.check_ported(self.pcfg)
-            flr.check_ported(self.fcfg)
             self.decision = sim.round_impl_decision(self.pcfg, self.fcfg)
-        for s in experiment.scenarios or ():
-            pcfg, fcfg = as_pair(s)
-            prt.check_ported(pcfg)
-            flr.check_ported(fcfg)
 
     def _setup(self, batch: int) -> sim.Setup:
         return sim.make_setup(

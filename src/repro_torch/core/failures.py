@@ -100,13 +100,6 @@ _FAILURE_DATA = tuple(
 )
 
 
-def check_ported(fcfg: FailureConfig) -> None:
-    """Raise for a failure configuration the port does not run. Every
-    field is ported since the zoo slice, so nothing raises; the Plan
-    still calls this before a run, next to the protocol's check."""
-    del fcfg
-
-
 class FailureRows(NamedTuple):
     """The numeric failure fields, one row per trajectory."""
 

@@ -99,14 +99,6 @@ class ProtocolConfig:
         return tuple(getattr(self, f) for f in _PROTOCOL_META)
 
 
-def check_ported(pcfg: ProtocolConfig) -> None:
-    """Raise for a protocol configuration the port does not run. Every
-    field is ported since the zoo slice (the walk variants run through
-    ``repro_torch.zoo.variants``), so nothing raises; the Plan still
-    calls this before a run, next to the failure config's check."""
-    del pcfg
-
-
 class ProtocolRows(NamedTuple):
     """The numeric protocol fields the ported rules read, one row per
     trajectory."""

@@ -113,18 +113,13 @@ class Setup:
 
 
 def make_setup(graph: Graph, pcfgs, fcfgs, steps: int, device, partitionable=True) -> Setup:
-    """Check the configs are ported, move the graph to ``device`` and
-    stack one protocol / failure row per trajectory. The rows must share
+    """Move the graph to ``device`` and stack one protocol / failure row per trajectory. The rows must share
     the static protocol fields (they run one program)."""
     pcfg = pcfgs[0]
     if any(p.static_fields != pcfg.static_fields for p in pcfgs):
         raise ValueError("trajectories of one batch must share the static protocol fields")
     if any(f.static_fields != fcfgs[0].static_fields for f in fcfgs):
         raise ValueError("trajectories of one batch must share the static failure fields")
-    for p in pcfgs:
-        prt.check_ported(p)
-    for f in fcfgs:
-        flr.check_ported(f)
 
     def dev(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int32), device=device)

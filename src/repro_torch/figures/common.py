@@ -214,7 +214,7 @@ def save_result(bench: str, rows: list, extra: dict | None = None, out: str | No
 
 def run_figure(bench: str, groups, *, steps: int, seeds: int, device=None,
                proto_start=PROTO_START, bursts=BURSTS, batched: bool = True,
-               verbose: bool = True, out=None, save: bool = True):
+               verbose: bool = True, out=None):
     """Run a figure's ``groups`` (``[(graph, [Scenario, ...])]``): each
     group as one sweep (``batched``) or each scenario as its own
     ensemble; print each curve's CSV row when ``verbose``, write the rows
@@ -232,6 +232,5 @@ def run_figure(bench: str, groups, *, steps: int, seeds: int, device=None,
                          "forks": r.forks, "terms": r.terms})
             if verbose:
                 print(r.csv_row(), flush=True)
-    if save:
-        save_result(bench, rows, out=out)
+    save_result(bench, rows, out=out)
     return rows

@@ -174,15 +174,16 @@ def test_protocol_config_validation():
         tprt.ProtocolConfig(round_impl="bad")
     assert tprt.ProtocolConfig(z0=8).p == jprt.ProtocolConfig(z0=8).p
     assert tprt.ProtocolConfig().static_fields == jprt.ProtocolConfig().static_fields
-    for ported in (dict(algorithm="missingperson"), dict(algorithm="none"),
-                   dict(auto_eps=True), dict(analytic_survival=True)):
-        tprt.check_ported(tprt.ProtocolConfig(**ported))
-    # the zoo's walk variants are ported; walk payloads still raise
-    for variant in tprt.WALK_VARIANTS:
-        tprt.check_ported(tprt.ProtocolConfig(walk_variant=variant))
     from repro_torch.api import Experiment
     from repro_torch.graphs import make_graph
 
+    # every protocol field is ported, the zoo's walk variants too: a Plan
+    # takes each config; walk payloads still raise
+    for ported in [dict(algorithm="missingperson"), dict(algorithm="none"),
+                   dict(auto_eps=True), dict(analytic_survival=True)] + [
+                       dict(walk_variant=v) for v in tprt.WALK_VARIANTS]:
+        Experiment(graph=make_graph("ring", 8), protocol=tprt.ProtocolConfig(**ported),
+                   steps=5, device="cpu").plan()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Experiment(graph=make_graph("ring", 8), protocol=tprt.ProtocolConfig(), steps=5,
                    device="cpu", payload=object())
@@ -249,18 +250,19 @@ def test_failure_config_guards_and_padding():
     assert padded[0].burst_times == (5, -1, -1) and padded[0].burst_sizes == (2, 0, 0)
     with pytest.raises(ValueError):
         tflr.FailureConfig(burst_times=(1,), burst_sizes=())
-    # the zoo's attacks are ported (padded like every schedule); durable
-    # sweeps (store=) still raise
+    from repro_torch.api import Experiment
+    from repro_torch.graphs import make_graph
+
+    # the zoo's attacks are ported (padded like every schedule): a Plan
+    # takes each; durable sweeps (store=) still raise
     for zoo in (dict(pacman_mobile=True), dict(pacman_nodes=(3,)),
                 dict(edge_cut_times=(5,), edge_cut_thresholds=(3,))):
-        tflr.check_ported(tflr.FailureConfig(**zoo))
+        Experiment(graph=make_graph("ring", 8), protocol=tprt.ProtocolConfig(),
+                   failures=tflr.FailureConfig(**zoo), steps=5, device="cpu").plan()
     padded = tflr.pad_bursts([tflr.FailureConfig(pacman_nodes=(3, 4)), tflr.FailureConfig(),
                               tflr.FailureConfig(edge_cut_times=(5,), edge_cut_thresholds=(3,))])
     assert padded[1].pacman_nodes == (-1, -1) and padded[0].edge_cut_times == (-1,)
     assert padded[0].edge_cut_thresholds == (-1,) and padded[2].pacman_nodes == (-1, -1)
-    from repro_torch.api import Experiment
-    from repro_torch.graphs import make_graph
-
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Experiment(graph=make_graph("ring", 8), protocol=tprt.ProtocolConfig(), steps=5,
                    device="cpu").sweep([(tprt.ProtocolConfig(), tflr.FailureConfig())],

@@ -6,17 +6,15 @@ live JAX package on the CPU.
     ``bloom``), the Bloom hashes, ``step_mobile_pacman``, the multi-node
     ``apply_pacman``, ``edge_cut_mask`` and forks copying ``prev`` and
     ``bloom``;
-  - the 4 x 4 grid (community graph n 24, 150 steps, 2 seeds, decisions
-    from step 40, attacks at step 80) through the registered ``"zoo"``
-    experiment against the reference's sweep cores: integer outputs and
-    final carries (``prev``, ``bloom``, ``pacman_pos`` included) bitwise,
-    ``theta_mean`` within rtol = atol = 1e-6. The reference runs the
-    node-sum oracle (``estimator_impl="compare", round_impl="unfused"``);
-    the port its own ``"auto"`` (the round_update kernel's path);
-  - ``round_decisions()`` against the reference's (its Pallas backend);
-  - the ``uniform|none`` row against the plain configuration;
+  - ``round_decisions()`` of the 4 x 4 grid (community graph n 24)
+    against the reference's (its Pallas backend);
   - ``zoo_scenarios`` and ``Experiment.from_config({"experiment": "zoo"})``
-    against the reference's rows.
+    against the reference's rows; Fig. 9's scenario list against
+    ``benchmarks/fig9_zoo.py``'s at its constants and at the grid's
+    setting.
+
+The grid end to end, through Fig. 9's driver, is in
+``test_torch_zoo_grid.py``.
 """
 import dataclasses
 
@@ -28,31 +26,31 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-import repro.api as japi  # noqa: E402
+from benchmarks import fig9_zoo as rfig9  # noqa: E402
 import repro.zoo as jzoo  # noqa: E402
 from repro.core import failures as jflr  # noqa: E402
 from repro.core import protocol as jprt  # noqa: E402
 from repro.core import walkers as jwlk  # noqa: E402
-from repro.core.outputs import FULL as JFULL  # noqa: E402
-from repro.core.simulator import _graph_arrays, _run_core  # noqa: E402
 from repro.graphs import generators as jgen  # noqa: E402
-from repro.sweep import stack_configs as jstack  # noqa: E402
+import repro.api as japi  # noqa: E402
 from repro.zoo import variants as jvar  # noqa: E402
 from repro_torch import zoo as tzoo  # noqa: E402
 from repro_torch.api import Experiment  # noqa: E402
 from repro_torch.core import failures as tflr  # noqa: E402
 from repro_torch.core import protocol as tprt  # noqa: E402
 from repro_torch.core import walkers as twlk  # noqa: E402
+from repro_torch.figures import fig9_zoo  # noqa: E402
 from repro_torch.graphs import make_graph  # noqa: E402
 from repro_torch.graphs.state import GraphState, availability  # noqa: E402
 from repro_torch.utils import prng  # noqa: E402
 from repro_torch.zoo import variants as tvar  # noqa: E402
 
 PART = bool(jax.config.jax_threefry_partitionable)
-N, STEPS, SEEDS, START, ATTACK_AT = 24, 150, 2, 40, 80
+N, STEPS, START, ATTACK_AT = 24, 150, 40, 80
 PROTO = dict(algorithm="decafork+", z0=6, eps=3.0, eps2=7.57, max_walks=16, rt_bins=128,
              protocol_start=START)
 DEFENSES = ("uniform", "jump", "biased", "bloom")
+# Fig. 9's attacks at the grid's setting
 ATTACKS = (
     ("none", {}),
     ("mobile_pacman", {"node": 0, "hop_prob": 0.5, "start": ATTACK_AT}),
@@ -62,28 +60,6 @@ ATTACKS = (
 CONFIG = dict(experiment="zoo", n=N, graph_seed=0, graph_kwargs={"k_bridges": 2}, steps=STEPS,
               defenses=DEFENSES, attacks=ATTACKS)
 PORT_IMPL = dict(estimator_impl="auto")
-ORACLE = dict(estimator_impl="compare", round_impl="unfused")
-INT_FIELDS = ("z", "forks", "terms", "failures", "fork_parent", "terminated")
-CARRY = ("t", "walks.pos", "walks.active", "walks.track", "walks.prev", "walks.bloom",
-         "last_seen", "rts.hist", "rts.total", "byz_state", "graph.node_up",
-         "graph.edge_up", "theta_hist", "pacman_pos")
-
-
-def _get(state, path):
-    for part in path.split("."):
-        state = getattr(state, part)
-        if state is None:
-            return None
-    return np.asarray(state.numpy() if isinstance(state, torch.Tensor) else state)
-
-
-_CACHE = {}
-
-
-def _cached(key, fn):
-    if key not in _CACHE:
-        _CACHE[key] = fn()
-    return _CACHE[key]
 
 
 def port_experiment():
@@ -94,83 +70,6 @@ def port_experiment():
 
 def jax_experiment(**impl):
     return japi.Experiment.from_config({**CONFIG, "protocol": {**PROTO, **impl}})
-
-
-def port_grid():
-    """Each group of the port's plan through ``Plan.sweep_group`` (the
-    batch ``sweep`` runs), with its final state: name -> (carry, outputs)."""
-    def go():
-        exp = port_experiment()
-        plan, scen = exp.plan(), exp.scenarios
-        out = {}
-        for _sig, idxs in plan.groups():
-            final, rec = plan.sweep_group([scen[i] for i in idxs], seeds=SEEDS)
-            for j, i in enumerate(idxs):
-                rows = slice(j * SEEDS, (j + 1) * SEEDS)
-                carry = {f: _get(final, f) for f in CARRY}
-                out[scen[i].name] = (
-                    {f: (None if v is None else v[rows]) for f, v in carry.items()},
-                    {f: getattr(rec, f)[rows].numpy() for f in rec._fields},
-                )
-        return out
-    return _cached("port", go)
-
-
-def jax_grid():
-    """The reference's sweep of the same grid, one jitted program per
-    group (``_sweep_core`` with the final state kept)."""
-    def go():
-        exp = jax_experiment(**ORACLE)
-        g = exp.graph
-        scen = exp.scenarios
-        keys = jax.random.split(jax.random.key(0), SEEDS)
-        out = {}
-        for _sig, idxs in exp.plan().groups():
-            pcfgs, fcfgs = jstack([scen[i] for i in idxs])
-            nbr, deg, mir, pi = _graph_arrays(g, scen[idxs[0]].pcfg)
-
-            def one(pc, fc):
-                return jax.vmap(lambda k: _run_core(k, nbr, deg, mir, pi, pc, fc, STEPS, g.n,
-                                                    spec=JFULL))(keys)
-
-            final, rec = jax.jit(jax.vmap(one))(pcfgs, fcfgs)
-            for j, i in enumerate(idxs):
-                carry = {f: _get(final, f) for f in CARRY}
-                out[scen[i].name] = (
-                    {f: (None if v is None else v[j]) for f, v in carry.items()},
-                    {f: np.asarray(getattr(rec, f))[j] for f in rec._fields},
-                )
-        return out
-    return _cached("jax", go)
-
-
-# ---------------------------------------------------------------------------
-# the grid end to end
-# ---------------------------------------------------------------------------
-
-
-def test_zoo_grid_matches_jax_sweep():
-    got, want = port_grid(), jax_grid()
-    assert list(got) == list(want) and len(got) == 16
-    for name in want:
-        (gc, go), (wc, wo) = got[name], want[name]
-        for f in INT_FIELDS:
-            np.testing.assert_array_equal(go[f], wo[f], err_msg=f"{name}: {f}")
-        np.testing.assert_allclose(go["theta_mean"], wo["theta_mean"], rtol=1e-6, atol=1e-6,
-                                   err_msg=f"{name}: theta_mean")
-        for f in CARRY:
-            assert (gc[f] is None) == (wc[f] is None), (name, f)
-            if wc[f] is not None:
-                np.testing.assert_array_equal(gc[f], wc[f], err_msg=f"{name}: final {f}")
-    # every defense ran its memory, every attack struck
-    assert want["biased|none"][0]["walks.prev"] is not None
-    assert want["bloom|none"][0]["walks.bloom"].any()
-    assert want["uniform|mobile_pacman"][0]["pacman_pos"].shape == (SEEDS, 1)
-    for d in DEFENSES:
-        assert want[f"{d}|multi_pacman"][1]["failures"].sum() > 0
-        assert want[f"{d}|none"][1]["forks"].sum() > 0
-    assert want["uniform|edge_cut"][0]["graph.edge_up"].sum() < \
-        want["uniform|none"][0]["graph.edge_up"].sum()
 
 
 def test_round_decisions_match_jax(monkeypatch):
@@ -194,19 +93,24 @@ def test_round_decisions_match_jax(monkeypatch):
     assert not any(d.fused for _, _, d in got)
 
 
-def test_uniform_none_row_is_the_plain_config():
-    """The grid's ``uniform|none`` row (unfused, padded Pac-Man and cut
-    slots that never fire) equals the plain configuration's ensemble,
-    which takes the whole_round kernel's path."""
-    got = port_grid()["uniform|none"][1]
-    plain = Experiment(graph=make_graph("community", N, 0, k_bridges=2),
-                       protocol=tprt.ProtocolConfig(**PROTO, **PORT_IMPL), steps=STEPS,
-                       outputs="full", device="cpu", partitionable=PART)
-    (_, _, decision), = plain.plan().round_decisions()
-    assert decision.fused
-    want = plain.ensemble(SEEDS)
-    for f in want._fields:
-        np.testing.assert_array_equal(got[f], getattr(want, f).numpy(), err_msg=f)
+@pytest.mark.parametrize("tiny", [False, True], ids=["reference-constants", "grid"])
+def test_fig9_scenario_list_matches_the_reference_script(tiny, monkeypatch):
+    """Fig. 9's driver's grid against ``benchmarks/fig9_zoo.py``'s (read,
+    never run) at the script's constants and at the grid's setting of
+    ``test_torch_zoo_grid.py``; the port adds only its execution fields
+    (``estimator_impl="auto"``, the kernels' node-sum family)."""
+    if tiny:
+        for k, v in dict(N=N, STEPS=STEPS, PROTO_START=START, ATTACKS=ATTACKS).items():
+            monkeypatch.setattr(rfig9, k, v)
+    jexp = rfig9.experiment()
+    kw = dict(proto_start=START, attack_at=ATTACK_AT, n=N, steps=STEPS) if tiny else {}
+    [(g, scen)] = fig9_zoo.scenarios(**kw)
+    np.testing.assert_array_equal(g.neighbors, jexp.graph.neighbors)
+    assert [s.name for s in scen] == [s.name for s in jexp.scenarios]
+    for s, js in zip(scen, jexp.scenarios):
+        pf, jpf = _fields(s.pcfg), _fields(js.pcfg)
+        assert (pf.pop("estimator_impl"), jpf.pop("estimator_impl")) == ("auto", "gather")
+        assert pf == jpf and _fields(s.fcfg) == _fields(js.fcfg), s.name
 
 
 def _fields(cfg):
