@@ -2,10 +2,11 @@
 """Smoke run of the PyTorch port on one NVIDIA H100.
 
     python3 chip_smoke.py               # the paper's 9000 steps, main path and sweep
-    python3 chip_smoke.py --steps 300 --sweep-steps 300 --zoo-steps 600 --figure-steps 1000
+    python3 chip_smoke.py --steps 300 --sweep-steps 300 --zoo-steps 600 --figure-steps 1000 \
+        --rwsgd-steps 300
                                         # a quick pass through every phase
 
-Every round of phases 3-5 and 7-9 replays a captured CUDA graph (the
+Every round of phases 3-5 and 7-10 replays a captured CUDA graph (the
 Plan's executable cache, ``repro_torch.api.plan``), and every decode
 step of phase 6 too (``launch.serve.DecodeGraph``); each captured run's
 capture is timed apart from its replays, and short eager windows of the
@@ -111,12 +112,13 @@ Phases, each printed on its own line:
    and a 4-seed mixed sweep (the three algorithms and ``none``, churny
    failures) on cuda equals the same sweep on the CPU (integers bitwise,
    theta_mean within 1e-6);
-8. zoo: Fig. 9's grid at its full setting (``benchmarks/fig9_zoo.py``
+8. zoo: Fig. 9's grid at its full widths (``benchmarks/fig9_zoo.py``
    under ``BENCH_FULL=1``: community graph n 64, two bridges; DecAFork+
    Z0 10, eps 3.0 / 7.57, W 64, B 1024, decisions from step 1000; the
    defenses uniform / jump / biased / bloom against none / mobile Pac-Man
    (hop 0.5) / two Pac-Men (0, 32) / an edge cut at 32, every attack at
-   step 2166; 16 seeds, 4500 steps unless ``--zoo-steps`` says otherwise)
+   step 2166; 16 seeds; 4500 steps there, cut to 3000 unless
+   ``--zoo-steps`` says otherwise)
    through the port's ``figures.fig9_zoo`` experiment, one sweep on cuda:
    each group's decision and reason, captured ms per round,
    trajectory-rounds/s and capture seconds. No group may decide fused
@@ -143,7 +145,39 @@ Phases, each printed on its own line:
    bursts, Byzantine node, crash or Pac-Man moved inside the window, for
    their first 120 rounds x 2 seeds on cuda against the CPU (a scenario
    an earlier driver ran on the same graph is not rerun): integer
-   outputs and the final carry bitwise, theta_mean within 1e-6.
+   outputs and the final carry bitwise, theta_mean within 1e-6;
+10. payload: the RW-SGD workload, walks carrying model replicas trained
+   by local AdamW steps (``optim.RwSgdPayload``). (a) The paper's
+   training path at full width: ``examples/decentralized_training.py``'s
+   defaults (regular graph n 64, d 8; DecAFork Z0 6, W 16, eps 1.2,
+   decisions from step 400, a burst of 3 walks at step 900, 1400 steps
+   unless ``--rwsgd-steps`` says otherwise; ``adamw(3e-3)``, local batch
+   2 x 32 tokens) with paper-rwsgd at its published width and depth (4
+   layers, d 256, vocabulary 4096; 6,031,616 parameters a replica), 4
+   seeds (64 replicas with their AdamW moments), captured: ms per round,
+   trajectory-rounds/s, trained replica-steps/s and tokens/s, capture
+   and init seconds, peak device memory; whole_round's launches must
+   equal the rounds plus the capture's warm-up round (read from the
+   graph), Z_t must survive the burst and the loss fall (the last 100
+   rounds' mean under the first 100's). The first 50 rounds through the
+   eager loop must be bitwise the captured run (integers, losses), and a
+   captured 50-round run, run twice, bitwise the eager loop and itself
+   (outputs and final replicas); 10 captured rounds under torch.profiler
+   give the busy share and the kernels with the most device time. (b)
+   The smoke config, 2 seeds, 60 rounds, decisions from step 20 and a
+   burst at 40, captured on cuda against the spawned CPU process's run
+   in 10-round legs: integers, ``trained`` and the final state bitwise;
+   then each leg again on cuda from the CPU's state and replicas at its
+   start: integers bitwise, its first round's per-slot losses within
+   1e-5, ``mean_loss`` within 1e-3 in every round (free-running losses
+   of two implementations drift further apart over 60 rounds: Adam's
+   first steps follow the sign of the gradient; the drift is printed).
+   (c) Fig. 8's driver at its ``BENCH_FULL``
+   scale (900 steps, 4 seeds, 9 scenarios in 3 groups): its rows printed,
+   whole_round's launches counted as in phase 9, every DecAFork /
+   DecAFork+ row still training at the end, at most 3 new cache slots.
+   Phase 2 holds whole_round bitwise to its plain version at these
+   paths' shapes (batch 4, n 64, D 8, W 16; batch 12, n 48, D 6, W 12).
 
 Before the last line it prints the card's name and power limit, then one
 JSON object with every kernel's launches, error and times; the last line
@@ -205,6 +239,10 @@ FIGURE_STEPS = 2400
 Z_BAND = (PAPER["z0"] / 2, 2 * PAPER["z0"])  # mean Z after the start must lie here
 # phase 8: Fig. 9's grid as benchmarks/fig9_zoo.py sets it under BENCH_FULL=1
 ZOO = dict(n=64, steps=4500, seeds=16, protocol_start=1000, parity_steps=200, parity_seeds=4)
+# phase 8's default rounds, cut from Fig. 9's 4500 to hold the whole run
+# near 900 s beside phase 10: the attacks (2166) still fire, 834 rounds
+# before the end
+ZOO_STEPS = 3000
 # phase 9: the port's figure drivers (name, module, the events of their
 # parity window: decisions, bursts and each driver's own attack moved into
 # its first FIGURE_PARITY rounds); Figs. 1 and 5 are phase 7
@@ -224,6 +262,23 @@ FIGURE_GRAPHS = (("regular", 50, dict(degree=8)), ("regular", 200, dict(degree=8
                  ("complete", 100, {}), ("erdos_renyi", 100, {}), ("power_law", 100, dict(m=4)))
 FIGURE_BATCH = 8  # the drivers' seeds at their reduced setting
 CPU_THREADS = 4  # torch threads of the process that runs the parity's CPU side
+# phase 10: examples/decentralized_training.py's defaults, with paper-rwsgd
+# at its published width and depth (configs/paper_rwsgd.py) in place of
+# its smoke config; 4 seeds, captured
+RWSGD = dict(n=64, degree=8, z0=6, max_walks=16, eps=1.2, protocol_start=400, rt_bins=512,
+             burst_at=900, burst_size=3, steps=1400, seeds=4, lr=3e-3, local_batch=2, seq=32)
+RWSGD_EAGER = 50  # eager rounds held to the captured run (phase 10 a)
+RWSGD_PROFILE = 10  # captured rounds under torch.profiler (phase 10 a)
+# phase 10 b: the smoke config on cuda and on the CPU, decisions and the
+# burst inside the window so forks copy replicas in it
+RWSGD_PARITY = dict(steps=60, seeds=2, protocol_start=20, burst_at=40, leg=10)
+# mean_loss per round, cuda vs CPU over a leg (tests/test_torch_payload.py's
+# bound, there over a 20-round window)
+RWSGD_LOSS_BOUND = 1e-3
+FIG8_FULL = dict(steps=900, seeds=4)  # benchmarks/fig8_learning.py under BENCH_FULL=1
+# whole_round's shapes on phase 10's paths (batch, n, degree, W, bins):
+# the training run's 4 seeds, Fig. 8's groups (3 scenarios x 4 seeds)
+PAYLOAD_SHAPES = ((4, 64, 8, 16, 512), (12, 48, 6, 12, 256))
 CPU_TIMEOUT_S = 600  # the longest phases 8 and 9 wait for that process's result
 
 
@@ -457,6 +512,16 @@ def check_kernels(rng, graph, dev, large_n=100_000):
             r.setdefault("figure_graphs", []).append(dict(shape=shape, max_abs_err=e))
         log("kernels", kernel="whole_round,theta_sums", shape=shape, max_abs_err=max(err, err_ts),
             bitwise=True)
+
+    # whole_round at phase 10's shapes (both algorithms), bitwise
+    for bt, nn, deg, w, b in PAYLOAD_SHAPES:
+        g = make_graph("regular", nn, seed=0, degree=deg)
+        x = whole_round_inputs(rng, bt, nn, w, b, deg, w, K, g, dev)
+        err = max(max_abs_err(whole_round(*clone(x), decafork_plus=plus),
+                              whole_round_plain(*clone(x), plus)) for plus in (False, True))
+        shape = f"regular,batch={bt},n={nn},D={deg},W={w},B={b}"
+        rows[2].setdefault("payload_shapes", []).append(dict(shape=shape, max_abs_err=err))
+        log("kernels", kernel="whole_round", shape=shape, max_abs_err=err, bitwise=True)
     return rows
 
 
@@ -1529,7 +1594,7 @@ def sweep_parity(graph):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the zoo (Fig. 9's grid at its full setting)
+# phase 8: the zoo (Fig. 9's grid at its full widths)
 # ---------------------------------------------------------------------------
 
 
@@ -1626,14 +1691,17 @@ def figure_parity_cases():
 
 
 def cpu_runs(what):
-    """The CPU side of phase 8's (``"zoo"``) or phase 9's (``"figures"``)
-    parity, run in a child process (:func:`start_cpu_runs`) while the card
-    runs the phases: one :func:`sweep_groups` list per case."""
+    """The CPU side of phase 8's (``"zoo"``), phase 9's (``"figures"``) or
+    phase 10's (``"rwsgd"``) parity, run in a child process
+    (:func:`start_cpu_runs`) while the card runs the phases: one
+    :func:`sweep_groups` list per case (phase 10: :func:`rwsgd_cpu_legs`)."""
     import torch
 
     from repro_torch.utils.tree import tree_leaves
 
     torch.set_num_threads(CPU_THREADS)
+    if what == "rwsgd":
+        return rwsgd_cpu_legs()
     if what == "zoo":
         exp = zoo_experiment(ZOO["parity_steps"], "cpu")
         cases = [(exp.graph, exp.scenarios, ZOO["parity_steps"], ZOO["parity_seeds"])]
@@ -1647,13 +1715,14 @@ def cpu_runs(what):
 
 def start_cpu_runs():
     """One spawned process (it has its own executable cache and no CUDA
-    context) that computes :func:`cpu_runs` for phase 8, then phase 9,
-    while the card runs phases 7-9: (pool, {what: pending result}); the
-    caller terminates the pool."""
+    context) that computes :func:`cpu_runs` for phase 8, then phases 9 and
+    10, while the card runs phases 7-10: (pool, {what: pending result});
+    the caller terminates the pool."""
     import multiprocessing
 
     pool = multiprocessing.get_context("spawn").Pool(1)
-    return pool, {what: pool.apply_async(cpu_runs, (what,)) for what in ("zoo", "figures")}
+    return pool, {what: pool.apply_async(cpu_runs, (what,))
+                  for what in ("zoo", "figures", "rwsgd")}
 
 
 def group_parity(graph, scenarios, steps, seeds, label, cpu):
@@ -1833,6 +1902,41 @@ def finite_row(row) -> bool:
     return all(math.isfinite(x) for x in nums)
 
 
+def counted_driver(name, run):
+    """``run()`` (a figure driver) with every kernel's launches counted
+    from 0: each must equal one per round of the groups whose path it is
+    (whole_round in fused groups, round_update in unfused DecAFork groups,
+    theta_sums in ``auto_eps``'s auto runs), plus one warm-up round per
+    new capture (:func:`expected_launches`). Returns (its result, wall s,
+    kernel name -> launches)."""
+    from repro_torch.api import plan as plan_mod
+    from repro_torch.kernels import KERNELS
+
+    slots = set(plan_mod._EXECUTABLES)
+    replays = {}  # cache key -> rounds its runner ran in this driver
+    orig = plan_mod.executable
+
+    def counted(mode, signature, build):
+        runner = orig(mode, signature, build)
+        replays[(mode, signature)] = replays.get((mode, signature), 0) + runner.steps
+        return runner
+
+    for k in KERNELS:  # this driver's counts start here
+        k.launches = 0
+    plan_mod.executable = counted
+    t0 = time.perf_counter()
+    try:
+        result = run()
+    finally:
+        plan_mod.executable = orig
+    wall = time.perf_counter() - t0
+    got = {k.__name__: k.launches for k in KERNELS}
+    want = expected_launches(slots, replays)
+    if got != want:
+        raise AssertionError(f"{name}: kernel launches {got}, expected {want}")
+    return result, wall, got
+
+
 def figure_phase(steps, out, cpu):
     """Phase 9: each port driver of ``FIGURES`` on cuda at its reduced
     setting (``steps`` cuts its rounds where given), its CSV rows
@@ -1846,7 +1950,6 @@ def figure_phase(steps, out, cpu):
     (:func:`group_parity`)."""
     import importlib
 
-    from repro_torch.api import plan as plan_mod
     from repro_torch.kernels import KERNELS
 
     res, counts = {}, {k.__name__: 0 for k in KERNELS}
@@ -1854,28 +1957,8 @@ def figure_phase(steps, out, cpu):
         mod = importlib.import_module(f"repro_torch.figures.{module}")
         kw = {} if steps is None else dict(steps=steps)
         rounds = steps or mod.STEPS
-        slots = set(plan_mod._EXECUTABLES)
-        replays = {}  # cache key -> rounds its runner ran in this driver
-        orig = plan_mod.executable
-
-        def counted(mode, signature, build, _orig=orig):
-            runner = _orig(mode, signature, build)
-            replays[(mode, signature)] = replays.get((mode, signature), 0) + runner.steps
-            return runner
-
-        for k in KERNELS:  # this driver's counts start here
-            k.launches = 0
-        plan_mod.executable = counted
-        t0 = time.perf_counter()
-        try:
-            rows = mod.run(verbose=True, device="cuda", out=out, **kw)
-        finally:
-            plan_mod.executable = orig
-        wall = time.perf_counter() - t0
-        got = {k.__name__: k.launches for k in KERNELS}
-        want = expected_launches(slots, replays)
-        if got != want:
-            raise AssertionError(f"{name}: kernel launches {got}, expected {want}")
+        rows, wall, got = counted_driver(
+            name, lambda: mod.run(verbose=True, device="cuda", out=out, **kw))
         bad = [r["name"] for r in rows if not finite_row(r)]
         if bad:
             raise AssertionError(f"{name}: rows with non-finite values {bad}")
@@ -1910,17 +1993,335 @@ def figure_phase(steps, out, cpu):
     return res, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the RW-SGD payload (walks carrying model replicas)
+# ---------------------------------------------------------------------------
+
+
+def rwsgd_experiment(cfg, steps, device, *, protocol_start, burst_at, task=None):
+    """``examples/decentralized_training.py``'s run (``RWSGD``) through the
+    port with model ``cfg``: DecAFork on a regular graph, a burst, an
+    ``RwSgdPayload`` trained by ``adamw``. ``task`` defaults to the
+    chain the example draws (``make_markov_task(vocab)``), on the CPU."""
+    from repro_torch.api import Experiment
+    from repro_torch.core import FailureConfig, ProtocolConfig
+    from repro_torch.data import make_markov_task
+    from repro_torch.graphs import make_graph
+    from repro_torch.models.model import Model
+    from repro_torch.optim import RwSgdPayload, adamw
+
+    r = RWSGD
+    task = task or make_markov_task(cfg.vocab_size, device="cpu")
+    payload = RwSgdPayload(Model(cfg), adamw(r["lr"]), task, max_walks=r["max_walks"],
+                           local_batch=r["local_batch"], seq_len=r["seq"])
+    pcfg = ProtocolConfig("decafork", z0=r["z0"], max_walks=r["max_walks"], eps=r["eps"],
+                          protocol_start=protocol_start, rt_bins=r["rt_bins"],
+                          estimator_impl="auto")
+    fcfg = FailureConfig(burst_times=(burst_at,), burst_sizes=(r["burst_size"],))
+    return Experiment(graph=make_graph("regular", r["n"], seed=0, degree=r["degree"]),
+                      protocol=pcfg, failures=fcfg, steps=steps, payload=payload, device=device)
+
+
+def rwsgd_parity_plan(device):
+    """Phase 10 (b)'s plan on ``device``: the smoke config, decisions and
+    a burst inside ``RWSGD_PARITY``'s window, the task drawn on the CPU
+    (the same logits on both devices); and the run's keys."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.utils import prng
+
+    p = RWSGD_PARITY
+    plan = rwsgd_experiment(get_smoke_config("paper_rwsgd"), p["steps"], device,
+                            protocol_start=p["protocol_start"], burst_at=p["burst_at"]).plan()
+    return plan, prng.split(prng.key(0, device=device), p["seeds"])
+
+
+def rwsgd_cpu_legs():
+    """The CPU side of phase 10 (b): the run in legs of
+    ``RWSGD_PARITY["leg"]`` rounds through the eager loop (bitwise the
+    straight run: every stream folds the carried step counter), with the
+    state and the replicas at each leg's start; returns ([(state leaves,
+    carry leaves)] per leg, step outputs, payload outputs, final state
+    leaves), plain tensors."""
+    import torch
+
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.outputs import FULL
+    from repro_torch.utils.tree import tree_clone, tree_leaves
+
+    p = RWSGD_PARITY
+    plan, keys = rwsgd_parity_plan("cpu")
+    setup = plan._setup(p["seeds"])
+    state, carry = sim.init_state(keys, setup), sim.init_payload(keys, setup, plan.payload)
+    starts, outs, learns = [], [], []
+    for _ in range(0, p["steps"], p["leg"]):
+        starts.append(tuple(tuple(tree_leaves(tree_clone(x))) for x in (state, carry)))
+        (state, carry), (o, lr) = sim.run_rounds(state, setup, p["leg"], FULL, plan.decision,
+                                                 payload=plan.payload, carry=carry)
+        outs.append(o)
+        learns.append(lr)
+    cat = lambda recs: {f: torch.cat([getattr(r, f) for r in recs], dim=1)  # noqa: E731
+                        for f in recs[0]._fields}
+    return starts, cat(outs), cat(learns), tuple(tree_leaves(state))
+
+
+def train_curve(learn):
+    """Mean loss per round over the seeds' rounds that trained."""
+    import numpy as np
+
+    trained = learn.trained.cpu().numpy() > 0
+    loss = np.where(trained, learn.mean_loss.cpu().numpy(), np.nan)
+    return np.nanmean(loss, axis=0)
+
+
+def top_kernels(events, rounds, k=8):
+    """The ``k`` kernels of a profiled window with the most device time:
+    [(name, ms per round, launches per round)]."""
+    rows = sorted(events, key=lambda e: -e.self_device_time_total)[:k]
+    return [(e.key[:60], round(e.self_device_time_total / rounds / 1e3, 4), e.count / rounds)
+            for e in rows]
+
+
+def rwsgd_train(steps, seeds):
+    """Phase 10 (a): the paper's training path at full width, captured
+    (``RWSGD``); returns (its numbers, whole_round's launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import plan as plan_mod
+    from repro_torch.configs import get_config
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.outputs import FULL
+    from repro_torch.kernels import KERNELS, whole_round
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_leaves
+
+    r = RWSGD
+    torch.cuda.reset_peak_memory_stats()
+    plan = rwsgd_experiment(get_config("paper_rwsgd"), steps, "cuda",
+                            protocol_start=r["protocol_start"], burst_at=r["burst_at"]).plan()
+    if not plan.decision.fused:
+        raise AssertionError(f"phase 10: the round did not fuse: {plan.decision.reason}")
+    payload, setup = plan.payload, plan._setup(seeds)
+    keys = prng.split(prng.key(0, device="cuda"), seeds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry = sim.init_payload(keys, setup, payload)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x[0, 0].numel() for x in tree_leaves(carry.params))
+    del carry
+    for k in KERNELS:  # the main path's counts start here
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (final, replicas), (outs, learn) = plan._execute("ensemble", keys, setup, plan.fcfg,
+                                                     plan.decision)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = whole_round.launches
+    (key, runner), = [(k, rn) for k, rn in plan_mod._EXECUTABLES.items()
+                      if rn.payload is payload]
+    graph_launches(runner, "phase 10", {"whole_round": 1})
+    if launches != steps + 1:
+        raise AssertionError(f"phase 10: whole_round launched {launches} times "
+                             f"for {steps} rounds and the capture's warm-up round")
+    replay_s = wall - runner.capture_s - init_s
+    z = outs.z.cpu().numpy()
+    curve = train_curve(learn)
+    first, last = float(np.nanmean(curve[:100])), float(np.nanmean(curve[-100:]))
+    survival = float((z > 0).all(axis=1).mean())
+    trained = int(learn.trained.sum())
+    a = dict(steps=steps, seeds=seeds, params_per_replica=n_params,
+             replicas=seeds * r["max_walks"], init_s=init_s, capture_s=runner.capture_s,
+             wall_s=wall, ms_per_round=replay_s * 1e3 / steps,
+             trajectory_rounds_per_s=seeds * steps / replay_s,
+             trained_replica_steps_per_s=trained / replay_s,
+             trained_tokens_per_s=trained * r["local_batch"] * r["seq"] / replay_s,
+             peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+             graph_kernel_nodes=runner.graph.kernel_nodes, survival=survival,
+             z_before_burst=float(z[:, max(r["burst_at"] - 100, 0):r["burst_at"]].mean()),
+             z_end=float(z[:, -100:].mean()), loss_first_100=first, loss_last_100=last,
+             entropy_floor=payload.task.entropy, forks=int(outs.forks.sum()),
+             whole_round_launches=launches)
+    log("rwsgd", **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in a.items()})
+    log("rwsgd", loss_per_100_rounds=[round(float(np.nanmean(curve[i:i + 100])), 4)
+                                      for i in range(0, steps, 100)])
+    del replicas, final
+    plan_mod._EXECUTABLES.pop(key)  # frees the runner's static replicas and its graph
+    del runner
+    # the first RWSGD_EAGER rounds through the eager loop against the
+    # captured run's, and against a captured run of that length (its
+    # final replicas), run twice: the second replay bitwise the first
+    w = RWSGD_EAGER
+    short = sim.make_setup(plan.graph, [plan.pcfg] * seeds, [plan.fcfg] * seeds, w, "cuda")
+    fresh = lambda st: (sim.init_state(keys, st), st,  # noqa: E731
+                        sim.init_payload(keys, st, payload))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _, carry = fresh(short)
+    e_final, (e_outs, e_learn) = sim.run_rounds(state, short, w, FULL, plan.decision,
+                                                payload=payload, carry=carry)
+    torch.cuda.synchronize()
+    a["eager_ms_per_round"] = (time.perf_counter() - t0) * 1e3 / w
+    head = lambda rec: tuple(v[:, :w] for v in rec)  # noqa: E731
+    same_leaves(tuple(e_outs) + tuple(e_learn), head(outs) + head(learn),
+                f"phase 10: the eager loop's first {w} rounds")
+    runner_w = sim.RoundRunner(short, FULL, plan.decision, payload)
+    c_final, _ = runner_w.run(*fresh(short))
+    same_leaves(e_final, c_final, f"phase 10: {w} rounds' final state and replicas")
+    c2_final, (c2_outs, c2_learn) = runner_w.run(*fresh(short))
+    same_leaves(c2_final, c_final, "phase 10: the second captured run's final replicas")
+    same_leaves(tuple(c2_outs) + tuple(c2_learn), tuple(e_outs) + tuple(e_learn),
+                "phase 10: the second captured run's outputs")
+    a["second_run"] = "bitwise"
+    del e_final, c_final, c2_final, runner_w
+    # the busy share: a short captured run under torch.profiler (a window
+    # keeps about 110,000 kernel records)
+    pr = RWSGD_PROFILE
+    prof = sim.make_setup(plan.graph, [plan.pcfg] * seeds, [plan.fcfg] * seeds, pr, "cuda")
+    runner_p = sim.RoundRunner(prof, FULL, plan.decision, payload)
+    runner_p.run(*fresh(prof))  # captures
+    args = fresh(prof)
+    _seen, events, wall_us = device_launches(lambda: runner_p.run(*args))
+    busy = sum(e.self_device_time_total for e in events)
+    a.update(eager_vs_captured="bitwise", profiled_rounds=pr, device_busy_share=busy / wall_us,
+             device_kernel_ms_per_round=busy / pr / 1e3,
+             device_kernels_per_round=sum(e.count for e in events) / pr,
+             top_kernels=top_kernels(events, pr))
+    del runner_p, args
+    torch.cuda.empty_cache()
+    log("rwsgd", eager_ms_per_round=f"{a['eager_ms_per_round']:.3f}", eager_rounds=w,
+        eager_vs_captured="bitwise (integers, losses, final replicas)",
+        second_captured_run="bitwise",
+        device_busy_share=f"{a['device_busy_share']:.4f}",
+        device_kernel_ms_per_round=f"{a['device_kernel_ms_per_round']:.3f}",
+        device_kernels_per_round=f"{a['device_kernels_per_round']:.0f}")
+    log("rwsgd", top_kernels_ms_per_round=a["top_kernels"])
+    if survival < 1.0:
+        raise AssertionError(f"phase 10: Z_t died (survival {survival})")
+    if not last < first:
+        raise AssertionError(f"phase 10: the loss did not fall ({first} -> {last})")
+    return a, launches
+
+
+def rwsgd_parity(cpu):
+    """Phase 10 (b): the parity run captured on cuda against the CPU's
+    legs (``cpu``, the pending :func:`cpu_runs` of ``"rwsgd"``). The whole
+    run: integers, ``trained`` and the final state bitwise. Each leg
+    again on cuda, eagerly, from the CPU's state and replicas at its
+    start: integers bitwise, the leg's first-round per-slot losses within
+    1e-5 (the same weights and batch), ``mean_loss`` within
+    ``RWSGD_LOSS_BOUND`` over the leg. Adam's steps follow sign(g), so
+    the free-running losses drift apart by more than that bound over 60
+    rounds on any two implementations (ulp-level gradient differences);
+    the legs hold every round of the run to the CPU's from a shared
+    state. Returns (its numbers, whole_round's launches)."""
+    import torch
+
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.outputs import FULL
+    from repro_torch.kernels import whole_round
+    from repro_torch.utils.tree import tree_leaves, tree_replace
+
+    p = RWSGD_PARITY
+    plan, keys = rwsgd_parity_plan("cuda")
+    setup = plan._setup(p["seeds"])
+    before = whole_round.launches
+    t0 = time.perf_counter()
+    (final, _carry), (outs, learn) = plan._execute("ensemble", keys, setup, plan.fcfg,
+                                                   plan.decision)
+    launches = whole_round.launches - before
+    t1 = time.perf_counter()
+    starts, w_outs, w_learn, w_final = cpu.get(CPU_TIMEOUT_S)
+    log("rwsgd", cpu_side_wait_s=f"{time.perf_counter() - t1:.1f}")
+    same_leaves(tuple(tree_leaves(final)), w_final, "phase 10 parity: final state")
+    for f in INT_FIELDS:
+        same_leaves((getattr(outs, f),), (w_outs[f],), f"phase 10 parity: {f}")
+    same_leaves((learn.trained,), (w_learn["trained"],), "phase 10 parity: trained")
+    L = p["leg"]
+    free = float((learn.mean_loss.cpu() - w_learn["mean_loss"]).abs().max())
+    legs = []
+    like_state, like_carry = sim.init_state(keys, setup), sim.init_payload(keys, setup,
+                                                                           plan.payload)
+    for i, (st, ca) in enumerate(starts):
+        state = tree_replace(like_state, [x.cuda() for x in st])
+        carry = tree_replace(like_carry, [x.cuda() for x in ca])
+        _, (o, lr) = sim.run_rounds(state, setup, L, FULL, plan.decision, payload=plan.payload,
+                                    carry=carry)
+        span = slice(i * L, (i + 1) * L)
+        for f in INT_FIELDS:
+            same_leaves((getattr(o, f),), (w_outs[f][:, span],), f"phase 10 leg {i}: {f}")
+        same_leaves((lr.trained,), (w_learn["trained"][:, span],), f"phase 10 leg {i}: trained")
+        first = float((lr.loss[:, 0].cpu() - w_learn["loss"][:, span][:, 0]).abs().max())
+        mean = float((lr.mean_loss.cpu() - w_learn["mean_loss"][:, span]).abs().max())
+        legs.append(dict(start=i * L, first_round_loss_max_abs_err=first,
+                         mean_loss_max_abs_err=mean, forks=int(o.forks.sum())))
+        if first > 1e-5 or mean > RWSGD_LOSS_BOUND:
+            raise AssertionError(f"phase 10 leg {i}: first-round losses {first} (1e-5), "
+                                 f"mean_loss {mean} ({RWSGD_LOSS_BOUND})")
+    res = dict(p, integers_trained_final_state="bitwise", legs=legs, bound=RWSGD_LOSS_BOUND,
+               free_running_mean_loss_max_abs_err=free, wall_s=time.perf_counter() - t0)
+    log("rwsgd", parity="cuda vs cpu", **p, integers_trained_final_state="bitwise",
+        legs=legs, free_running_mean_loss_max_abs_err=free)
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def fig8_full(out):
+    """Phase 10 (c): Fig. 8's driver at its ``BENCH_FULL`` scale, every
+    kernel launch counted (:func:`counted_driver`); returns (its numbers,
+    launches by kernel)."""
+    from repro_torch.figures import fig8_learning
+
+    f8 = FIG8_FULL
+    rows, wall, got = counted_driver(
+        "fig8", lambda: fig8_learning.run(verbose=True, device="cuda", out=out, **f8))
+    saved = json.load(open(os.path.join(out, "fig8_learning.json")))
+    if saved["new_cache_slots"] > len(fig8_learning.ALGS):
+        raise AssertionError(f"fig8: {saved['new_cache_slots']} new cache slots")
+    if not got["whole_round"]:
+        raise AssertionError("fig8: no fused group launched whole_round")
+    dead = [x["name"] for x in rows if not x["name"].startswith("fig8/none")
+            and not (x["trained_final"] > 0 and x["loss_final"] is not None)]
+    if dead:
+        raise AssertionError(f"fig8: rows that stopped training {dead}")
+    res = dict(f8, wall_s=wall, new_cache_slots=saved["new_cache_slots"],
+               launches={k: v for k, v in got.items() if v}, rows=rows)
+    log("fig8", **f8, wall_s=f"{wall:.1f}", new_cache_slots=saved["new_cache_slots"],
+        launches=res["launches"])
+    return res, got
+
+
+def payload_phase(steps, seeds, cpu, out):
+    """Phase 10: (a) :func:`rwsgd_train`, (b) :func:`rwsgd_parity`, (c)
+    :func:`fig8_full`; returns (results, launches by kernel)."""
+    from repro_torch.kernels import KERNELS
+
+    counts = {k.__name__: 0 for k in KERNELS}
+    train, counts["whole_round"] = rwsgd_train(steps, seeds)
+    parity, n = rwsgd_parity(cpu)
+    counts["whole_round"] += n
+    fig8, got = fig8_full(out)
+    for k, v in got.items():
+        counts[k] += v
+    return dict(train=train, parity=parity, fig8=fig8), counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=MAIN_STEPS,
                     help=f"main-path rounds (default {MAIN_STEPS}; the paper runs 9000)")
     ap.add_argument("--sweep-steps", type=int, default=SWEEP_STEPS,
                     help=f"phase 7's rounds (default {SWEEP_STEPS}; the paper runs 9000)")
-    ap.add_argument("--zoo-steps", type=int, default=ZOO["steps"],
-                    help=f"phase 8's rounds (default {ZOO['steps']}, Fig. 9's full setting)")
+    ap.add_argument("--zoo-steps", type=int, default=ZOO_STEPS,
+                    help=f"phase 8's rounds (default {ZOO_STEPS}; Fig. 9's full setting runs "
+                         f"{ZOO['steps']})")
     ap.add_argument("--figure-steps", type=int, default=FIGURE_STEPS,
                     help=f"phase 9's rounds per driver (default {FIGURE_STEPS}; the drivers' "
                          "reduced setting runs 4500)")
+    ap.add_argument("--rwsgd-steps", type=int, default=RWSGD["steps"],
+                    help=f"phase 10's rounds at full width (default {RWSGD['steps']}, the "
+                         "example's)")
     args = ap.parse_args()
 
     try:
@@ -2017,12 +2418,21 @@ def main() -> int:
                                "(fig9_zoo keeps its own); seeds, widths and event times uncut")
         figures, figure_counts = figure_phase(
             args.figure_steps, os.path.join(ROOT, "chiprun_out", "figures_smoke"), cpu["figures"])
+        for k, v in figure_counts.items():
+            counts[k] += v
+        lap("9 figures")
+        if args.rwsgd_steps < RWSGD["steps"]:
+            log("rwsgd", cut=f"steps {args.rwsgd_steps} of the example's {RWSGD['steps']}; "
+                             "widths, depth and seeds uncut")
+        payload, payload_counts = payload_phase(
+            args.rwsgd_steps, RWSGD["seeds"], cpu["rwsgd"],
+            os.path.join(ROOT, "chiprun_out", "figures_smoke"))
     finally:
         pool.terminate()
         pool.join()
-    for k, v in figure_counts.items():
+    for k, v in payload_counts.items():
         counts[k] += v
-    lap("9 figures")
+    lap("10 payload")
     log("time", **{k.replace(" ", "_"): f"{v:.1f}" for k, v in phase_s.items()})
 
     for r in rows:
@@ -2036,7 +2446,7 @@ def main() -> int:
                   build_s_by_source=build, sass=sass, kernels=rows,
                   main=main_res, profile=profile, parity=parity, unfused=unfused,
                   captured_vs_eager=captured, serve=serve, sweep=sweep, zoo=zoo,
-                  figures=figures, phase_s=phase_s)
+                  figures=figures, payload=payload, phase_s=phase_s)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(detail, fh, indent=1)

@@ -8,6 +8,8 @@
     outs = exp.ensemble(seeds=50)     # the paper's seed ensembles
     res = Experiment(graph=g, scenarios=[...], steps=9000).sweep(seeds=50)
     exp = Experiment.from_config({"experiment": "zoo", "n": 64, "device": "cuda"})
+    exp = Experiment(graph=g, protocol=pcfg, steps=900, payload=RwSgdPayload(...))
+    (final, replicas), (outs, learn) = exp.run(key=0)   # RW-SGD riding the walks
 
 It runs on ``cuda`` unless ``device`` says otherwise (``device="cpu"``
 runs the kernels' plain versions); with no CUDA device and no explicit
@@ -26,7 +28,7 @@ from repro_torch.api.placement import Placement
 from repro_torch.api.plan import Plan
 from repro_torch.api.results import SweepResult
 from repro_torch.core.failures import FailureConfig
-from repro_torch.core.outputs import resolve_spec
+from repro_torch.core.outputs import split_outputs
 from repro_torch.core.protocol import ProtocolConfig
 from repro_torch.utils.device import resolve_device
 
@@ -41,8 +43,11 @@ class Experiment:
     rows, the default list of ``sweep``); outputs (``None`` /
     ``'scalars'`` / ``'full'`` / an OutputSpec / field names);
     placement (``'auto'`` / ``'local'``; ``'sharded'`` raises); device;
-    partitionable; name. ``payload`` exists only to raise: payloads are
-    not ported yet."""
+    partitionable; name; payload (a ``core.payload.Payload``, e.g.
+    ``optim.RwSgdPayload``: the workload the walks carry, one carry per
+    trajectory row). With a payload, ``outputs=None`` records every
+    StepOutputs field, and a field-name sequence may mix StepOutputs
+    names with the payload's output fields (``core.outputs.split_outputs``)."""
 
     graph: Any
     protocol: ProtocolConfig | None = None
@@ -57,10 +62,6 @@ class Experiment:
     name: str | None = None
 
     def __post_init__(self):
-        if self.payload is not None:
-            raise NotImplementedError(
-                "walk payloads are not ported yet (ROADMAP.md queue 1, item 8)"
-            )
         if self.steps is None:
             raise TypeError("Experiment needs steps= (trajectory length)")
         if self.failures is not None and self.protocol is None:
@@ -77,7 +78,9 @@ class Experiment:
         object.__setattr__(self, "placement", Placement.resolve(self.placement))
         object.__setattr__(self, "steps", int(self.steps))
         object.__setattr__(self, "device", resolve_device(self.device))
-        object.__setattr__(self, "_spec", resolve_spec(self.outputs))
+        spec, pspec = split_outputs(self.outputs, self.payload)
+        object.__setattr__(self, "_spec", spec)
+        object.__setattr__(self, "_pspec", pspec)
         self.plan()  # unported configurations raise here, not mid-run
 
     @classmethod
@@ -121,5 +124,7 @@ class Experiment:
             parts.append(f"protocol={self.protocol.algorithm}")
         if self.scenarios:
             parts.append(f"scenarios={len(self.scenarios)}")
+        if self.payload is not None:
+            parts.append(f"payload={type(self.payload).__name__}")
         parts.append(f"device={self.device}")
         return f"Experiment{label}({', '.join(parts)})"

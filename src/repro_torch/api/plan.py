@@ -17,6 +17,13 @@ tensors) are copied into its static inputs, so the same structure never
 captures again across ``run`` / ``ensemble`` / ``sweep`` calls or
 re-planned Experiments. ``cache_stats`` reports the slots and the CUDA
 graphs captured. The kernels are built once per process at first use.
+
+A payload (``Experiment(payload=...)``) rides every trajectory row: its
+carry is initialised per row from the row's key, its hooks run inside
+the captured round, and every entry point returns the reference's pair
+``((final, carry), (outputs, payload outputs))`` (``ensemble`` and
+``sweep_stacked`` the outputs pair, ``sweep`` a SweepResult with
+``payloads``).
 """
 from __future__ import annotations
 
@@ -27,13 +34,25 @@ import torch
 from repro_torch.api.results import SweepResult
 from repro_torch.core import failures as flr
 from repro_torch.core import simulator as sim
+from repro_torch.core.outputs import RecordedOutputs
 from repro_torch.sweep.scenario import as_pair, group_scenarios, stack_configs
 from repro_torch.utils import prng
+from repro_torch.utils.tree import tree_map
 
-__all__ = ["Plan", "cache_stats", "clear_cache", "executable", "plan_signature"]
+__all__ = ["Plan", "cache_stats", "clear_cache", "executable", "payload_key", "plan_signature"]
 
 # the process-wide executable cache: (mode, signature) -> RoundRunner
 _EXECUTABLES: dict = {}
+
+
+def payload_key(payload):
+    """The signature component of a payload: its type-qualified
+    ``signature()`` tuple where it declares one (structurally equal
+    payloads then share a slot), else the object itself (identity)."""
+    if payload is None:
+        return None
+    key = getattr(payload, "_signature_key", lambda: None)()
+    return payload if key is None else ("payload",) + key
 
 
 def plan_signature(
@@ -50,13 +69,16 @@ def plan_signature(
     device,
     partitionable: bool,
     decision: sim.RoundDecision,
+    payload=None,
+    pspec=None,
 ) -> tuple:
     """Hashable static signature of one runner.
 
     The reference's keys (api/plan.py:86): the mode, the graph's n and
     max degree, the steps, the protocol's static fields, whether
     ``fork_prob`` is None, the padded failure-schedule lengths (bursts,
-    node crashes, extra Pac-Man ids, edge cuts), the output spec and the
+    node crashes, extra Pac-Man ids, edge cuts), the payload's
+    :func:`payload_key`, the output specs (step and payload) and the
     failure config's static fields; then what the reference's arrays
     carry in their avals and placement: the batch (rows), the device and
     the threefry layout; and the round decision that ``"auto"`` resolved
@@ -72,7 +94,9 @@ def plan_signature(
         pcfg.static_fields,
         pcfg.fork_prob is None,
         tuple(schedule_lens),
+        payload_key(payload),
         spec,
+        pspec,
         tuple(fcfg_static),
         batch,
         torch.device(device),
@@ -139,13 +163,16 @@ class Plan:
     ``run`` / ``ensemble`` run the base (protocol, failures) scenario;
     ``sweep_stacked`` runs one group of scenarios (one static structure)
     as ``S * seeds`` rows, scenario-major; ``sweep`` runs any scenario
-    list, one batch per group, results in input order."""
+    list, one batch per group, results in input order. A payload is
+    validated against every scenario's protocol config here."""
 
     def __init__(self, experiment):
         self.experiment = experiment
         self.graph = experiment.graph
         self.steps = experiment.steps
         self.spec = experiment._spec
+        self.pspec = experiment._pspec
+        self.payload = experiment.payload
         self.device = experiment.placement.place(experiment.device)
         self.partitionable = experiment.partitionable
         self.pcfg = experiment.protocol
@@ -153,6 +180,10 @@ class Plan:
         self.decision = None
         if self.pcfg is not None:
             self.decision = sim.round_impl_decision(self.pcfg, self.fcfg)
+        if self.payload is not None:
+            declared = [as_pair(s)[0] for s in experiment.scenarios or ()]
+            for pcfg in declared + ([self.pcfg] if self.pcfg is not None else []):
+                self.payload.validate(pcfg)
 
     def _setup(self, batch: int) -> sim.Setup:
         return sim.make_setup(
@@ -171,24 +202,41 @@ class Plan:
     def _execute(self, mode: str, keys, setup: sim.Setup, fcfg, decision):
         """``setup.steps`` rounds from the initial state of ``keys``
         through the cached runner of this structure."""
+        if self.payload is not None:
+            self.payload.validate(setup.pcfg)
         sig = plan_signature(
             mode, setup.n, int(setup.neighbors.shape[1]), setup.steps, setup.pcfg,
             _schedule_lens(fcfg), self.spec, fcfg.static_fields, batch=int(keys.shape[0]),
             device=self.device, partitionable=self.partitionable, decision=decision,
+            payload=self.payload, pspec=self.pspec,
         )
-        runner = executable(mode, sig, lambda: sim.RoundRunner(setup, self.spec, decision))
-        return runner.run(sim.init_state(keys, setup), setup)
+        runner = executable(mode, sig, lambda: sim.RoundRunner(
+            setup, self.spec, decision, self.payload, self.pspec))
+        carry = None if self.payload is None else sim.init_payload(keys, setup, self.payload)
+        return runner.run(sim.init_state(keys, setup), setup, carry)
+
+    def _outputs(self, result, fn):
+        """``fn`` applied to every recorded tensor of a run's outputs
+        (with a payload, its outputs too)."""
+        if self.payload is None:
+            return result.map(fn)
+        rec, pouts = result
+        return rec.map(fn), (pouts.map(fn) if isinstance(pouts, RecordedOutputs)
+                             else tree_map(fn, pouts))
 
     def run(self, key=0):
-        """One trajectory: ``(final SimState, RecordedOutputs)``. The state
-        keeps its batch axis of 1; the outputs are (steps, ...)."""
+        """One trajectory: ``(final SimState, RecordedOutputs)``, with a
+        payload ``((final SimState, carry), (RecordedOutputs, payload
+        outputs))``. The state and carry keep their batch axis of 1; the
+        outputs are (steps, ...)."""
         self._require_base("run")
         keys = _as_key(key, self.device)[None]
         final, rec = self._execute("run", keys, self._setup(1), self.fcfg, self.decision)
-        return final, rec.map(lambda v: v[0])
+        return final, self._outputs(rec, lambda v: v[0])
 
     def ensemble(self, seeds: int, base_key=0):
-        """A seed ensemble: RecordedOutputs with (seeds, steps, ...) fields."""
+        """A seed ensemble: RecordedOutputs with (seeds, steps, ...)
+        fields (with a payload, the pair ``(outputs, payload outputs)``)."""
         self._require_base("ensemble")
         keys = prng.split(_as_key(base_key, self.device), seeds,
                           partitionable=self.partitionable)
@@ -201,17 +249,19 @@ class Plan:
         """One group of scenarios (one static structure) as one batch of
         ``S * seeds`` rows, scenario-major, in one round loop: every
         scenario reuses the ensemble's keys ``split(key(base), seeds)``.
-        Outputs are RecordedOutputs with (S, seeds, steps, ...) fields."""
+        Outputs are RecordedOutputs with (S, seeds, steps, ...) fields
+        (with a payload, the pair ``(outputs, payload outputs)``)."""
         _check_unported(store, segment_steps)
         scenarios = self._scenarios(scenarios, "sweep_stacked")
         _final, rec = self.sweep_group(scenarios, seeds=seeds, base_key=base_key)
         S = len(scenarios)
-        return rec.map(lambda v: v.reshape((S, seeds) + v.shape[1:]))
+        return self._outputs(rec, lambda v: v.reshape((S, seeds) + v.shape[1:]))
 
     def sweep_group(self, scenarios: Sequence, *, seeds: int, base_key=0):
         """:meth:`sweep_stacked`'s batch with its final state: ``(final
         SimState, RecordedOutputs)``, both with ``S * seeds`` rows,
-        scenario-major."""
+        scenario-major (with a payload ``((state, carry), (outputs,
+        payload outputs))``)."""
         pcfgs, fcfgs = stack_configs(scenarios)
         S = len(scenarios)
         keys = prng.split(_as_key(base_key, self.device), seeds,
@@ -233,12 +283,17 @@ class Plan:
         scenarios = self._scenarios(scenarios, "sweep")
         names = tuple(getattr(s, "name", f"scenario{i}") for i, s in enumerate(scenarios))
         results = [None] * len(scenarios)
+        payloads = None if self.payload is None else [None] * len(scenarios)
         for _sig, idxs in self.groups(scenarios):
             stacked = self.sweep_stacked([scenarios[i] for i in idxs], seeds=seeds,
                                          base_key=base_key)
             for j, i in enumerate(idxs):
-                results[i] = stacked.map(lambda v, j=j: v[j])
-        return SweepResult(names=names, outputs=results)
+                row = self._outputs(stacked, lambda v, j=j: v[j])
+                if self.payload is None:
+                    results[i] = row
+                else:
+                    results[i], payloads[i] = row
+        return SweepResult(names=names, outputs=results, payloads=payloads)
 
     def round_decisions(self, scenarios: Sequence | None = None) -> list:
         """``[(group key, indices, RoundDecision)]``: how each group's

@@ -11,9 +11,10 @@ class SweepResult:
     ``len`` is the scenario count, iteration yields each scenario's
     outputs (leading ``(seeds,)`` axis), and indexing takes a position or
     a scenario name. An unknown name raises ``KeyError`` listing the
-    names; duplicate names are refused at construction. ``payloads`` is
-    ``None``: walk payloads are not ported yet (ROADMAP.md queue 1, item
-    8).
+    names; duplicate names are refused at construction. When the sweep
+    carried a payload, ``payloads`` is the parallel list of per-scenario
+    payload outputs (``payload(name_or_index)`` looks one up); otherwise
+    it is ``None``.
     """
 
     def __init__(self, names: tuple, outputs: list, payloads: list | None = None):
@@ -51,8 +52,7 @@ class SweepResult:
         if self.payloads is None:
             raise KeyError(
                 "this sweep ran without a payload, so there are no payload "
-                "outputs (walk payloads are not ported yet: ROADMAP.md "
-                "queue 1, item 8)"
+                "outputs; attach payload= to the Experiment to record them"
             )
         return self.payloads[self._index(i)]
 

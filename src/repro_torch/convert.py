@@ -1,8 +1,13 @@
 """Carry state, configs and weights across from the JAX package.
 
 What crosses is the simulator state and its configs, so a trajectory
-started in the reference can continue in the port, and a model's
-parameters, so the port serves the reference's weights. The JAX side
+started in the reference can continue in the port; a model's
+parameters, so the port serves the reference's weights; and the RW-SGD
+payload's carry (a ``ReplicaSet``: replicas, optimizer state, step
+counters) and its ``SyntheticTask``, so a payload run starts from the
+reference's exact weights and data (the task's ``u @ v`` product can
+differ by an ulp between XLA and torch, which ``categorical``'s argmax
+sees). The JAX side
 exports a ``SimState`` or a param pytree as a flat dict of numpy arrays
 (dotted paths; the typed key as its ``key_data`` uint32 pair; bfloat16
 leaves as ``ml_dtypes.bfloat16`` arrays); these functions read such
@@ -23,7 +28,10 @@ from repro_torch.core.simulator import SimState
 from repro_torch.graphs.state import GraphState
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import ModelParams
+from repro_torch.data.synthetic import SyntheticTask
 from repro_torch.models.transformer import param_shapes
+from repro_torch.optim.optimizers import OptState
+from repro_torch.optim.rw_sgd import ReplicaSet
 
 # field path -> (dtype, rank of one trajectory's array)
 STATE_FIELDS = {
@@ -160,3 +168,63 @@ def _put(tree: dict, parts, value) -> None:
     for p in parts[:-1]:
         tree = tree.setdefault(p, {})
     tree[parts[-1]] = value
+
+
+def params_tree_from_arrays(arrays: Mapping[str, np.ndarray], cfg: ModelConfig, device,
+                            lead: tuple = (), check_dtype: bool = True) -> dict:
+    """A ``Model.params_tree`` dict from a reference param pytree
+    flattened to numpy (dotted paths, layer leaves stacked (L, ...)),
+    each leaf with the leading axes ``lead`` (a replica stack's (W,) or
+    (batch, W)); paths, shapes and dtypes are checked against what
+    ``Model(cfg).init`` draws (dtypes only with ``check_dtype``:
+    optimizer moments may be bfloat16)."""
+    want = {}
+    for name, (shape, dtype) in param_shapes(cfg).items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            want[".".join(["layers"] + parts[2:])] = ((cfg.num_layers,) + shape, dtype)
+        else:
+            want[name] = (shape, dtype)
+    if set(arrays) != set(want):
+        raise KeyError(f"param paths differ from the port's: missing "
+                       f"{sorted(set(want) - set(arrays))}, unexpected "
+                       f"{sorted(set(arrays) - set(want))}")
+    tree: dict = {}
+    for path, a in arrays.items():
+        t = _tensor(a, device)
+        shape, dtype = want[path]
+        if tuple(t.shape) != tuple(lead) + shape or (check_dtype and t.dtype != dtype):
+            raise ValueError(f"{path}: expected {tuple(lead) + shape} {dtype}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+        _put(tree, path.split("."), t)
+    return tree
+
+
+def replicas_from_arrays(arrays: Mapping[str, np.ndarray], cfg: ModelConfig,
+                         device) -> ReplicaSet:
+    """The port's ``ReplicaSet`` from a reference ``ReplicaSet``
+    flattened to numpy: ``params.<path>``, ``opt_state.step``,
+    ``opt_state.mu.<path>`` / ``opt_state.nu.<path>`` (absent for plain
+    SGD) and ``steps``, every leaf with the slot axis (W, ...) of one
+    trajectory or the batch and slot axes (batch, W, ...)."""
+    steps = np.asarray(arrays["steps"])
+    lead = steps.shape if steps.ndim == 2 else (1,) + steps.shape
+    fix = (lambda a: np.asarray(a)) if steps.ndim == 2 else (lambda a: np.asarray(a)[None])
+
+    def group(prefix, check_dtype=False):
+        sub = {k[len(prefix):]: fix(v) for k, v in arrays.items() if k.startswith(prefix)}
+        return params_tree_from_arrays(sub, cfg, device, lead, check_dtype) if sub else ()
+
+    return ReplicaSet(
+        params=group("params.", check_dtype=True),
+        opt_state=OptState(
+            step=_tensor(fix(arrays["opt_state.step"]), device).to(torch.int32),
+            mu=group("opt_state.mu."), nu=group("opt_state.nu.")),
+        steps=_tensor(fix(steps), device).to(torch.int32),
+    )
+
+
+def task_from_arrays(logits: np.ndarray, entropy: float, device) -> SyntheticTask:
+    """A reference ``SyntheticTask`` (its (V, V) logits and entropy)."""
+    return SyntheticTask(logits=_tensor(np.asarray(logits, np.float32), device),
+                         entropy=float(entropy))

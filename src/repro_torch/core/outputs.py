@@ -1,10 +1,11 @@
 """Trajectory output selection: which ``StepOutputs`` fields a run stacks.
 
-Counterpart of the JAX package's ``core/outputs.py`` without the payload
-specs. Every round produces a full :class:`StepOutputs`; an
-:class:`OutputSpec` names the fields a run keeps over time (scalars-only
-by default: the per-walk fields are ``(W,)`` wide). Recorded
-trajectories come back as a :class:`RecordedOutputs`.
+Counterpart of the JAX package's ``core/outputs.py``. Every round
+produces a full :class:`StepOutputs`; an :class:`OutputSpec` names the
+fields a run keeps over time (scalars-only by default: the per-walk
+fields are ``(W,)`` wide; all of them when a payload is attached), and a
+:class:`PayloadOutputSpec` does the same for a payload's per-round
+outputs. Recorded trajectories come back as a :class:`RecordedOutputs`.
 """
 from __future__ import annotations
 
@@ -61,10 +62,49 @@ SCALARS = OutputSpec(SCALAR_FIELDS)
 FULL = OutputSpec(ALL_FIELDS)
 
 
-def resolve_spec(outputs: Any) -> OutputSpec:
-    """``None`` / ``'scalars'`` / ``'full'`` / an OutputSpec / field names."""
+@dataclasses.dataclass(frozen=True)
+class PayloadOutputSpec:
+    """The payload-output fields a run records: a selection of the
+    fields of the NamedTuple a payload's ``on_visit`` returns (e.g.
+    ``RwSgdOutputs``), in the payload's own field order; the selection
+    comes back as a :class:`RecordedOutputs`. ``None`` in place of a
+    spec records the payload's whole outputs."""
+
+    fields: Tuple[str, ...]
+
+    def __post_init__(self):
+        wanted = tuple(self.fields)
+        if not wanted:
+            raise ValueError("PayloadOutputSpec needs at least one field")
+        if len(set(wanted)) != len(wanted):
+            object.__setattr__(self, "fields", tuple(dict.fromkeys(wanted)))
+
+    def select(self, pout: Any) -> "RecordedOutputs":
+        """The selected fields of one round's payload outputs."""
+        have = getattr(pout, "_fields", None)
+        if have is None:
+            raise TypeError(
+                "payload outputs are not field-addressable (no ._fields); "
+                "emit a NamedTuple-like outputs pytree to use payload-output "
+                f"thinning, or drop the payload field selection {self.fields!r}"
+            )
+        missing = [f for f in self.fields if f not in have]
+        if missing:
+            raise ValueError(
+                f"payload outputs have no field(s) {missing!r}; this payload "
+                f"emits {tuple(have)!r}"
+            )
+        keep = tuple(f for f in have if f in set(self.fields))
+        return RecordedOutputs(keep, tuple(getattr(pout, f) for f in keep))
+
+
+def resolve_spec(outputs: Any, payload: Any = None) -> OutputSpec:
+    """``None`` / ``'scalars'`` / ``'full'`` / an OutputSpec / field
+    names. ``None`` means scalars for a payload-free run and every field
+    when a payload is attached (its hooks mirror the per-walk fork and
+    terminate events)."""
     if outputs is None:
-        return SCALARS
+        return FULL if payload is not None else SCALARS
     if isinstance(outputs, OutputSpec):
         return outputs
     if isinstance(outputs, str):
@@ -81,6 +121,42 @@ def resolve_spec(outputs: Any) -> OutputSpec:
         f"outputs must be None, 'scalars', 'full', an OutputSpec or a "
         f"sequence of field names; got {outputs!r}"
     )
+
+
+def split_outputs(outputs: Any, payload: Any):
+    """Resolve ``outputs=`` to ``(OutputSpec, PayloadOutputSpec | None)``.
+
+    A field-name sequence may mix ``StepOutputs`` names with the
+    payload's own output fields (``payload.output_fields()``); a name in
+    both sets is the ``StepOutputs`` field. ``None`` / a shorthand / an
+    OutputSpec, or a sequence of ``StepOutputs`` names only, leave the
+    payload recording everything (``None`` payload spec); a sequence
+    naming payload fields makes them the PayloadOutputSpec, and its
+    ``StepOutputs`` names (scalars where none is given) the OutputSpec.
+    """
+    if outputs is None or isinstance(outputs, (str, OutputSpec)):
+        return resolve_spec(outputs, payload), None
+    if isinstance(outputs, PayloadOutputSpec):
+        if payload is None:
+            raise ValueError("a PayloadOutputSpec was given but no payload is attached")
+        return resolve_spec(None, payload), outputs
+    if not isinstance(outputs, Sequence):
+        return resolve_spec(outputs, payload), None  # its TypeError
+    names = tuple(outputs)
+    step = tuple(f for f in names if f in ALL_FIELDS)
+    rest = tuple(f for f in names if f not in ALL_FIELDS)
+    if not rest:
+        return OutputSpec(step), None
+    declared = tuple(payload.output_fields()) if payload is not None else ()
+    unknown = [f for f in rest if f not in declared]
+    if unknown:
+        raise ValueError(
+            f"unknown output field(s) {unknown!r}: not StepOutputs fields "
+            f"({list(ALL_FIELDS)}) and not payload output fields "
+            f"({list(declared)})"
+        )
+    spec = OutputSpec(step) if step else SCALARS
+    return spec, PayloadOutputSpec(rest)
 
 
 class RecordedOutputs:

@@ -35,6 +35,15 @@ round implementations exist:
 
 The observation state (``last_seen``, ``hist``, ``total``) is updated in
 place round to round: a round writes W rows of an n-row table.
+
+A run may carry a payload (``core.payload.Payload``, e.g. the RW-SGD
+replicas of ``optim.rw_sgd``): its carry rides beside the state, and
+each round runs, in the reference's order (simulator.py:863-871 there),
+the round's payload key ``fold_in_time(key, t, PAYLOAD_STREAM)`` from the
+pre-round ``t``, then the protocol round, then ``on_terminate``,
+``on_fork`` and ``on_visit`` (:func:`payload_round`). The payload's keys
+are streams the round never draws from, so its ``StepOutputs`` are
+bitwise those of the payload-free run.
 """
 from __future__ import annotations
 
@@ -49,9 +58,11 @@ from repro_torch.core import estimator as est
 from repro_torch.core import failures as flr
 from repro_torch.core import protocol as prt
 from repro_torch.core import walkers as wlk
+from repro_torch.core.payload import PAYLOAD_STREAM, payload_init_key
 from repro_torch.core.outputs import (
     SCALARS,
     OutputSpec,
+    PayloadOutputSpec,
     RecordedOutputs,
     StepOutputs,
     empty_recording,
@@ -483,17 +494,69 @@ def protocol_step(state: SimState, setup: Setup, decision: RoundDecision | None 
     return protocol_step_unfused(state, setup)
 
 
+def init_payload(keys: torch.Tensor, setup: Setup, payload):
+    """The payload carry of every trajectory row of ``keys`` (batch, 2),
+    from ``payload_init_key`` of each row's run key."""
+    return payload.init(payload_init_key(keys), partitionable=setup.partitionable)
+
+
+def payload_round(state: SimState, carry, setup: Setup, payload,
+                  decision: RoundDecision | None = None):
+    """One round with a payload, in the reference's order: the payload
+    key from the pre-round ``t``, the protocol round, then
+    ``on_terminate``, ``on_fork`` and ``on_visit`` (which sees the walks
+    after the round's hop). Returns ``(state, outputs, carry,
+    payload outputs)``."""
+    t = state.t
+    k_visit = prng.fold_in_time(state.key, t, PAYLOAD_STREAM)
+    new, out = protocol_step(state, setup, decision)
+    carry = payload.on_terminate(carry, out.terminated)
+    carry = payload.on_fork(carry, out.fork_parent)
+    carry, pout = payload.on_visit(carry, new.walks, t, k_visit,
+                                   partitionable=setup.partitionable)
+    return new, out, carry, pout
+
+
+def _payload_record(pout, pspec: PayloadOutputSpec | None) -> tuple:
+    """The tensors of one round's payload outputs that a run records:
+    ``pspec``'s fields, or every field of the payload's outputs."""
+    sel = pout if pspec is None else pspec.select(pout)
+    vals = tuple(sel)
+    if not all(isinstance(v, torch.Tensor) for v in vals):
+        raise TypeError("payload outputs must be a NamedTuple of tensors or ()")
+    return vals
+
+
+def _payload_outputs(pout, pspec: PayloadOutputSpec | None, values: tuple):
+    """Recorded payload values in the outputs' own structure: the
+    payload's NamedTuple (or ``()``), or the selection's RecordedOutputs."""
+    if pspec is not None:
+        return RecordedOutputs(pspec.select(pout)._fields, values)
+    return type(pout)(*values) if hasattr(pout, "_fields") else tuple(values)
+
+
 def run_rounds(state: SimState, setup: Setup, length: int, spec: OutputSpec = SCALARS,
-               decision: RoundDecision | None = None):
+               decision: RoundDecision | None = None, payload=None, carry=None,
+               pspec: PayloadOutputSpec | None = None):
     """Advance ``length`` rounds; returns the final state and the
-    recorded outputs with (batch, length, ...) fields."""
+    recorded outputs with (batch, length, ...) fields. With a payload,
+    ``((state, carry), (outputs, payload outputs))``, the payload's
+    outputs stacked the same way."""
     if decision is None:
         decision = round_impl_decision(setup.pcfg, setup.fcfg)
-    rounds = []  # only the recorded fields of each round are kept
+    rounds, prounds, pout = [], [], ()  # only each round's recorded fields are kept
     for _ in range(length):
-        state, out = protocol_step(state, setup, decision)
+        if payload is None:
+            state, out = protocol_step(state, setup, decision)
+        else:
+            state, out, carry, pout = payload_round(state, carry, setup, payload, decision)
+            prounds.append(_payload_record(pout, pspec))
         rounds.append(tuple(getattr(out, f) for f in spec.fields))
-    return state, stack_rounds(spec, rounds)
+    rec = stack_rounds(spec, rounds)
+    if payload is None:
+        return state, rec
+    values = tuple(torch.stack(field, dim=1) for field in zip(*prounds))
+    return (state, carry), (rec, _payload_outputs(pout, pspec, values))
 
 
 def run_core(keys: torch.Tensor, setup: Setup, spec: OutputSpec = SCALARS,
@@ -517,37 +580,47 @@ RECORD_CHUNK = 256  # rounds a runner records in place between copies out
 
 class RoundRunner:
     """``setup.steps`` rounds of one static structure (Setup shapes and
-    static protocol fields, RoundDecision, OutputSpec, batch), run as the
-    reference runs its jitted scan: on CUDA one ``protocol_step`` is
-    captured as a CUDA graph at the first run and replayed once per round;
-    on the CPU the same round runs eagerly through the same buffers.
+    static protocol fields, RoundDecision, OutputSpec, batch, payload),
+    run as the reference runs its jitted scan: on CUDA one round is
+    captured as a CUDA graph at the first run and replayed once per
+    round; on the CPU the same round runs eagerly through the same
+    buffers.
 
-    The runner owns static inputs: the ``SimState`` fields, the Setup's
-    tensors (graph, protocol and failure rows) and recording buffers of
-    ``RECORD_CHUNK`` rounds. A run copies the caller's state and setup
-    values into them, so re-running with new keys, thresholds, rates or
-    schedules captures nothing new. The captured round ends by copying
-    the next state into the static state and writing each recorded field
-    at a device-side column of the chunk, so the round index never passes
-    through Python; after each chunk the run copies it into that run's
-    own (batch, steps, ...) outputs. What a runner keeps between runs is
-    therefore independent of ``steps``, and results never alias its
-    buffers. A failed capture or replay raises; there is no eager
-    fallback on CUDA. The capture's warm-up runs one real round on a
-    throwaway copy of the state (its kernel launches count); each replay
-    adds the captured graph's kernel nodes to their wrappers' counters
+    The runner owns static inputs: the ``SimState`` fields, the payload's
+    carry (a payload's replicas, say), the Setup's tensors (graph,
+    protocol and failure rows) and recording buffers of ``RECORD_CHUNK``
+    rounds for the step outputs and the payload's outputs. A run copies
+    the caller's state, carry and setup values into them, so re-running
+    with new keys, thresholds, rates or schedules captures nothing new.
+    The captured round ends by copying the next state and carry into the
+    static ones and writing each recorded field at a device-side column
+    of the chunk, so the round index never passes through Python; after
+    each chunk the run copies it into that run's own (batch, steps, ...)
+    outputs. What a runner keeps between runs is therefore independent
+    of ``steps``, and results never alias its buffers. With a payload
+    the captured round holds the payload's whole step (on_visit's
+    forward, backward and optimizer update for RW-SGD). A failed capture
+    or replay raises; there is no eager fallback on CUDA. The capture's
+    warm-up runs one real round on throwaway copies of the state and the
+    carry (its kernel launches count); each replay adds the captured
+    graph's kernel nodes to their wrappers' counters
     (``kernels.capture.Captured``)."""
 
-    def __init__(self, setup: Setup, spec: OutputSpec, decision: RoundDecision):
+    def __init__(self, setup: Setup, spec: OutputSpec, decision: RoundDecision,
+                 payload=None, pspec: PayloadOutputSpec | None = None):
         self.spec, self.decision, self.steps = spec, decision, setup.steps
+        self.payload, self.pspec = payload, pspec
         nbr, deg, mir, prows, frows, pi = tree_clone(_setup_tensors(setup))
         self.setup = dataclasses.replace(setup, neighbors=nbr, degrees=deg, mirror=mir,
                                          prows=prows, frows=frows, pi=pi)
         dev = nbr.device
         self.state = None  # the static SimState, allocated at the first run
+        self.carry = None  # the static payload carry, likewise
         self.batch, self.walks = int(prows.z0.shape[0]), setup.pcfg.max_walks
         self.chunk = max(1, min(RECORD_CHUNK, self.steps))
         self.recorded = empty_recording(spec, self.batch, self.chunk, self.walks, dev)
+        self.precorded = None  # the payload outputs' chunk, shaped at the first round
+        self.pout = None  # one round's payload outputs (their structure)
         self.column = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.graph = None
         self.capture_s = None  # host seconds of the warm-up and capture
@@ -557,35 +630,64 @@ class RoundRunner:
         """CUDA graphs captured: 1 once a CUDA run has captured, else 0."""
         return int(self.graph is not None)
 
+    def _step(self, state, carry):
+        """One round from ``state`` (and ``carry``): ``(state, outputs,
+        carry, payload outputs)``."""
+        if self.payload is None:
+            new, out = protocol_step(state, self.setup, self.decision)
+            return new, out, None, ()
+        return payload_round(state, carry, self.setup, self.payload, self.decision)
+
+    def _payload_buffers(self, pout) -> None:
+        """The payload outputs' recording chunk, (batch, chunk, ...) per
+        recorded field, made from the first round's outputs."""
+        if self.precorded is None:
+            self.pout = pout
+            self.precorded = tuple(
+                torch.empty((v.shape[0], self.chunk) + tuple(v.shape[1:]), dtype=v.dtype,
+                            device=v.device)
+                for v in _payload_record(pout, self.pspec))
+
     def _round(self) -> None:
         """One round on the static buffers: the captured work."""
-        new, out = protocol_step(self.state, self.setup, self.decision)
-        for d, s in zip(tree_leaves(self.state), tree_leaves(new)):
+        new, out, carry, pout = self._step(self.state, self.carry)
+        for d, s in zip(tree_leaves((self.state, self.carry)), tree_leaves((new, carry))):
             d.copy_(s)  # the next state in place (a no-op where updated in place)
         for buf, f in zip(self.recorded, self.spec.fields):
             buf.index_copy_(1, self.column, getattr(out, f).unsqueeze(1))
+        if self.payload is not None:
+            self._payload_buffers(pout)
+            for buf, v in zip(self.precorded, _payload_record(pout, self.pspec)):
+                buf.index_copy_(1, self.column, v.unsqueeze(1))
         self.column.add_(1)
 
-    def run(self, state: SimState, setup: Setup):
-        """``steps`` rounds from ``state`` under ``setup``'s values:
-        ``(final SimState, RecordedOutputs)``, as :func:`run_rounds`
-        gives them."""
+    def _warmup(self) -> None:
+        """A real round on throwaway copies of the state and the carry
+        (the capture's warm-up); it also shapes the payload's buffers."""
+        _new, _out, _carry, pout = self._step(tree_clone(self.state), tree_clone(self.carry))
+        if self.payload is not None:
+            self._payload_buffers(pout)
+
+    def run(self, state: SimState, setup: Setup, carry=None):
+        """``steps`` rounds from ``state`` (and the payload's ``carry``)
+        under ``setup``'s values: ``(final SimState, RecordedOutputs)``,
+        as :func:`run_rounds` gives them; with a payload ``((state,
+        carry), (outputs, payload outputs))``."""
+        if (carry is None) != (self.payload is None):
+            raise ValueError("a payload runner runs with its carry, and only then")
         copy_into(_setup_tensors(self.setup), _setup_tensors(setup))
         if self.state is None:
-            self.state = tree_clone(state)
+            self.state, self.carry = tree_clone(state), tree_clone(carry)
         else:
-            copy_into(self.state, state)
+            copy_into((self.state, self.carry), (state, carry))
         cuda = self.column.is_cuda
         if cuda and self.graph is None:
             t0 = time.perf_counter()
-            # the warm-up runs a real round on a throwaway copy of the
-            # state, so the caller's trajectory does not advance
-            self.graph = Captured(
-                self._round,
-                warmup=lambda: protocol_step(tree_clone(self.state), self.setup, self.decision),
-            )
+            self.graph = Captured(self._round, warmup=self._warmup)
             self.capture_s = time.perf_counter() - t0
-        outs = empty_recording(self.spec, self.batch, self.steps, self.walks, self.column.device)
+        dev = self.column.device
+        outs = empty_recording(self.spec, self.batch, self.steps, self.walks, dev)
+        pouts = None
         for start in range(0, self.steps, self.chunk):
             rounds = min(self.chunk, self.steps - start)
             self.column.zero_()
@@ -594,9 +696,16 @@ class RoundRunner:
             else:
                 for _ in range(rounds):
                     self._round()
-            for o, b in zip(outs, self.recorded):
+            if pouts is None and self.payload is not None:
+                pouts = tuple(torch.empty((b.shape[0], self.steps) + tuple(b.shape[2:]),
+                                          dtype=b.dtype, device=dev) for b in self.precorded)
+            for o, b in zip(outs + (pouts or ()), self.recorded + (self.precorded or ())):
                 o[:, start:start + rounds].copy_(b[:, :rounds])
-        return tree_clone(self.state), RecordedOutputs(self.spec.fields, outs)
+        rec = RecordedOutputs(self.spec.fields, outs)
+        if self.payload is None:
+            return tree_clone(self.state), rec
+        return ((tree_clone(self.state), tree_clone(self.carry)),
+                (rec, _payload_outputs(self.pout, self.pspec, pouts)))
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,12 @@
-"""Synthetic data for the port (``random_batch_like``)."""
-from repro_torch.data.synthetic import random_batch_like
+"""Synthetic data for the port: random batches and the RW-SGD payload's
+node-sharded Markov task."""
+from repro_torch.data.synthetic import (
+    SyntheticTask,
+    make_markov_task,
+    node_batches,
+    random_batch_like,
+    sample_batch,
+)
 
-__all__ = ["random_batch_like"]
+__all__ = ["SyntheticTask", "make_markov_task", "node_batches", "random_batch_like",
+           "sample_batch"]

@@ -5,9 +5,9 @@
     python -m repro_torch.figures.run fig1 fig9 --device cpu --out DIR
     BENCH_FULL=1 python -m repro_torch.figures.run fig1     # the paper's scale
 
-Prints ``name,us_per_call,derived`` CSV rows and writes one JSON file per
-driver to ``--out`` (``figures_out/`` by default). ``fig8`` (RW-SGD
-learning curves) needs the walk payload, which is not ported yet.
+Prints ``name,us_per_call,derived`` CSV rows (``fig8``: its loss rows)
+and writes one JSON file per driver to ``--out`` (``figures_out/`` by
+default).
 """
 from __future__ import annotations
 
@@ -24,16 +24,10 @@ from repro_torch.figures import (
     fig5_epsilon,
     fig6_graphs,
     fig7_topology,
+    fig8_learning,
     fig9_zoo,
     theory_bounds,
 )
-
-
-def _fig8(**_kw):
-    raise NotImplementedError(
-        "fig8 (RW-SGD learning) needs the walk payload, which is not ported yet "
-        "(ROADMAP.md queue 1, item 8: RW-SGD payload)"
-    )
 
 
 BENCHES = {
@@ -44,7 +38,7 @@ BENCHES = {
     "fig5": fig5_epsilon.run,
     "fig6": fig6_graphs.run,
     "fig7": fig7_topology.run,
-    "fig8": _fig8,
+    "fig8": fig8_learning.run,
     "fig9": fig9_zoo.run,
     "theory": theory_bounds.run,
     "auto_eps": auto_eps.run,
@@ -53,12 +47,12 @@ BENCHES = {
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("names", nargs="*", help=f"drivers to run (default: all but fig8): "
+    ap.add_argument("names", nargs="*", help=f"drivers to run (default: all): "
                                              f"{', '.join(BENCHES)}")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     ap.add_argument("--out", default=None, help="results directory (default: figures_out)")
     args = ap.parse_args(argv)
-    names = args.names or [n for n in BENCHES if n != "fig8"]
+    names = args.names or list(BENCHES)
     for name in names:
         if name not in BENCHES:
             raise SystemExit(f"unknown driver {name!r}; have {list(BENCHES)}")

@@ -6,6 +6,7 @@ A ``Model`` wraps a ``ModelConfig``; parameters live in a
 an ``nn.ModuleList``), passed to each method as in the reference:
 
   init(key, device)                  -> params
+  loss(tree, batch)                  -> (scalar, metrics)   [training]
   forward_logits(params, batch)      -> logits (B, S, V)
   prefill(params, batch)             -> (last_logits, cache)
   decode_step(params, cache, batch)  -> (logits, cache)
@@ -14,8 +15,13 @@ Batches are dicts of tensors (see ``batch_spec``). Caches keep the
 reference's stacked layout ((L, B, T, ...) tensors under
 ``cache["layers"]``) and are updated in place by ``decode_step`` (the
 reference returns new arrays; in place saves a copy of the cache per
-token). ``loss`` (training) is not ported yet: it comes with the RW-SGD
-payload (ROADMAP.md queue 1, item 8).
+token).
+
+``loss`` is functional and differentiable: it takes a plain dict tree of
+tensors (``params_tree``: the reference's pytree layout, layer leaves
+stacked (L, ...)) rather than the module, whose parameters carry no
+gradients. The RW-SGD payload trains a stack of such trees with a
+leading replica axis (``transformer.replica_losses``).
 """
 from __future__ import annotations
 
@@ -30,14 +36,17 @@ from repro_torch.models.transformer import (
     block_apply_full,
     block_init,
     check_ported,
+    check_trainable,
     embed_init,
     embed_tokens,
     logits_from_h,
     make_pos_info,
+    replica_losses,
     torch_dtype,
 )
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import tree_leaves
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module: dict values become
@@ -97,6 +106,62 @@ class Model:
         layers = [block_init(layer_keys[i], cfg, partitionable=partitionable)
                   for i in range(cfg.num_layers)]
         return ModelParams(embed_init(k_emb, cfg, partitionable=partitionable), layers)
+
+    # ------------------------------------------------------------- training
+    @staticmethod
+    def params_tree(params: ModelParams) -> Dict[str, Any]:
+        """``params`` as a dict tree in the reference's layout: the top
+        leaves, and ``"layers"`` with every layer leaf stacked on a
+        leading (L, ...) axis (copies, detached)."""
+        top = {k: v.detach().clone() for k, v in params.named_parameters()
+               if not k.startswith("layers.")}
+        layers = [dict(lp.named_parameters()) for lp in params.layers]
+        stacked: Dict[str, Any] = {}
+        for name in layers[0]:
+            node = stacked
+            parts = name.split(".")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = torch.stack([lp[name].detach() for lp in layers])
+        out = {}
+        for name, v in top.items():
+            node = out
+            parts = name.split(".")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = v
+        out["layers"] = stacked
+        return out
+
+    @staticmethod
+    def params_from_tree(tree: Dict[str, Any]) -> ModelParams:
+        """The inverse of :meth:`params_tree` (the serving module)."""
+        top = {k: v for k, v in tree.items() if k != "layers"}
+        L = tree_leaves(tree["layers"])[0].shape[0]
+
+        def layer(t, i):
+            return {k: layer(v, i) if isinstance(v, dict) else v[i].clone()
+                    for k, v in t.items()}
+
+        return ModelParams(top, [layer(tree["layers"], i) for i in range(L)])
+
+    def loss(self, params: Dict[str, Any], batch):
+        """Mean next-token cross-entropy of one model (a ``params_tree``
+        dict) on ``batch`` ({"tokens", "labels"}: (B, S) int), computed
+        in float32 as ``lse - gold``; returns ``(total, {"ce", "aux"})``
+        with ``total = ce + aux`` (aux is 0 for dense). Differentiable:
+        gradients flow to the tree's tensors. Only the dense family
+        trains, and ``use_pallas=True`` raises (no backward kernel)."""
+        check_trainable(self.cfg)
+        ce = replica_losses(_add_replica_axis(params), self.cfg, batch["tokens"][None],
+                            batch["labels"][None])[0]
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        return ce + aux, {"ce": ce, "aux": aux}
+
+    def replica_losses(self, params: Dict[str, Any], batch) -> torch.Tensor:
+        """(R,) losses of a stack of R models: ``params_tree`` leaves with
+        a leading replica axis, ``batch`` entries (R, B, S)."""
+        return replica_losses(params, self.cfg, batch["tokens"], batch["labels"])
 
     # --------------------------------------------------------------- forward
     def _stack_full(self, params, h, pos_info, collect_cache: bool):
@@ -184,6 +249,10 @@ class Model:
             h = block_apply_decode(lp, h, cfg, {k: t[i] for k, t in layers.items()}, pos_info)
         pos.add_(1)  # in place: a captured step keeps its cache at fixed addresses
         return logits_from_h(params, cfg, h), cache
+
+
+def _add_replica_axis(tree):
+    return {k: _add_replica_axis(v) if isinstance(v, dict) else v[None] for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from repro_torch.models.layers import (
     unproject,
 )
 from repro_torch.utils import prng
+from repro_torch.utils.tree import tree_leaves, tree_replace
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 PORTED_ARCHS = ("dense", "ssm")
@@ -227,3 +228,80 @@ def logits_from_h(p, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 def make_pos_info(cfg: ModelConfig, batch_size: int, seq_len: int, device):
     pos = torch.arange(seq_len, dtype=torch.int32, device=device).expand(batch_size, seq_len)
     return {"positions": pos}
+
+
+# ---------------------------------------------------------------------------
+# Training: the loss of a stack of model replicas
+# ---------------------------------------------------------------------------
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for a configuration the training path does not cover."""
+    check_ported(cfg)
+    if cfg.use_pallas:
+        raise NotImplementedError(
+            f"{cfg.name}: use_pallas=True has no backward: flash_attention and "
+            "ssd_intra_chunk are forward-only kernels (the reference's jax.grad "
+            "through pallas_call fails too); train with use_pallas=False"
+        )
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.arch_type} family is not ported yet (the RW-SGD "
+            "payload trains dense models); see ROADMAP.md queue 1, item 12"
+        )
+
+
+def _replica_project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("rtd,rdhk->rthk")`` as one batched matrix product."""
+    r, d, h, k = w.shape
+    return (x @ w.reshape(r, d, h * k)).reshape(*x.shape[:-1], h, k)
+
+
+def replica_losses(p, cfg: ModelConfig, tokens: torch.Tensor, labels: torch.Tensor):
+    """Each replica's mean next-token cross-entropy, (R,) float32, in the
+    reference's order: ``lse - gold`` in float32, averaged over the
+    replica's (B, S) positions (``Model.loss``; a dense stack adds no
+    auxiliary loss).
+
+    ``p`` is a dict tree with a leading replica axis R on every leaf and
+    the layer leaves stacked as in the reference, (R, L, ...) under
+    ``p["layers"]``; ``tokens`` and ``labels`` are (R, B, S). Every
+    product is batched over R. The embedding is read as a one-hot
+    product, exact in any float dtype, so its gradient is a product too:
+    an indexed read would backpropagate through an atomic scatter-add,
+    whose order, and so whose float sum, changes from run to run on a
+    GPU. ``gold`` is a gather whose backward scatters one value into
+    each (position, label) element, which no two positions share, so it
+    is exact."""
+    check_trainable(cfg)
+    R, B, S = tokens.shape
+    T = B * S
+    dt = torch_dtype(cfg)
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    vocab = torch.arange(cfg.vocab_size, device=tokens.device)
+    onehot = (tokens.reshape(R, T, 1) == vocab).to(dt)  # (R, T, V)
+    x = onehot @ p["embed"]  # (R, T, d)
+    # one row of positions, broadcast: the rotation is then computed once,
+    # whatever the number of replicas
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
+    layers = p["layers"]
+    per_layer = [leaf.unbind(1) for leaf in tree_leaves(layers)]  # one stack in backward
+    for i in range(cfg.num_layers):
+        lp = tree_replace(layers, [leaf[i] for leaf in per_layer])
+        at = lp["attn"]
+        h = rmsnorm(x, lp["attn_norm"][:, None], cfg.norm_eps)
+        q = _replica_project(h, at["wq"]).reshape(R * B, S, H, hd)
+        k = _replica_project(h, at["wk"]).reshape(R * B, S, KV, hd)
+        v = _replica_project(h, at["wv"]).reshape(R * B, S, KV, hd)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        out = blocked_causal_attention(q, k, v, window=cfg.sliding_window)
+        x = x + out.reshape(R, T, H * hd) @ at["wo"].reshape(R, H * hd, cfg.d_model)
+        h2 = rmsnorm(x, lp["mlp_norm"][:, None], cfg.norm_eps)
+        x = x + swiglu(lp["mlp"], h2)
+    h = rmsnorm(x, p["final_norm"][:, None], cfg.norm_eps)
+    w = p["embed"].transpose(1, 2) if cfg.tie_embeddings else p["unembed"]
+    logits = (h @ w).to(torch.float32)  # (R, T, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.reshape(R, T, 1).long())[..., 0]
+    return torch.mean(lse - gold, dim=-1)

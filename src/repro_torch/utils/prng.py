@@ -237,6 +237,17 @@ def gumbel(keys: torch.Tensor, shape, *, partitionable: bool = True) -> torch.Te
     return -torch.log(-torch.log(u))
 
 
+def gumbel_rows(keys: torch.Tensor, shape, *, partitionable: bool = True) -> torch.Tensor:
+    """:func:`gumbel` for keys with a leading row axis: the bits of every
+    row at once (integer work, exact however it is batched), the float
+    transform one row at a time, so that each row's noise depends on that
+    row alone (a vectorised ``log``'s lanes and its scalar tail can
+    differ in the last bit on the CPU, and where a row falls in the
+    tensor would then decide its bits)."""
+    u = _uniform_range(keys, shape, _TINY, 1.0, partitionable=partitionable)
+    return torch.cat([-torch.log(-torch.log(row)) for row in u.split(1)])
+
+
 def categorical(keys: torch.Tensor, logits: torch.Tensor, *, partitionable: bool = True):
     """``jax.random.categorical(key, logits, axis=-1)``: the argmax over
     the last axis of ``logits`` plus Gumbel noise drawn in ``logits``' own

@@ -44,3 +44,35 @@ def copy_into(static, values) -> None:
                 f"static input {tuple(d.shape)} {d.dtype}: its signature missed a shape"
             )
         d.copy_(s)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` applied to the tensors of ``tree`` (and the matching
+    tensors of ``rest``, trees of the same structure); dicts, tuples and
+    NamedTuples keep their structure, ``None`` stays ``None``."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *[r[k] for r in rest]) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        vals = [tree_map(fn, v, *[r[i] for r in rest]) for i, v in enumerate(tree)]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    return tree
+
+
+def tree_replace(like, leaves):
+    """``like``'s structure with its tensors replaced, in
+    :func:`tree_leaves` order, by ``leaves``."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, torch.Tensor):
+            return next(it)
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, tuple):
+            vals = [build(v) for v in t]
+            return type(t)(*vals) if hasattr(t, "_fields") else tuple(vals)
+        return t
+
+    return build(like)

@@ -23,6 +23,19 @@ from repro_torch.core import walkers as twlk  # noqa: E402
 from repro_torch.graphs.state import GraphState as TGraphState  # noqa: E402
 from repro_torch.utils import prng  # noqa: E402
 
+
+def tiny_payload(max_walks):
+    """An RW-SGD payload of a 1-layer d 16 model (vocabulary 32)."""
+    from repro_torch.data import make_markov_task
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.model import Model
+    from repro_torch.optim import RwSgdPayload, adamw
+
+    cfg = ModelConfig(name="tiny", arch_type="dense", num_layers=1, d_model=16, d_ff=32,
+                      vocab_size=32, num_heads=2, num_kv_heads=2, head_dim=8, dtype="float32")
+    return RwSgdPayload(Model(cfg), adamw(1e-2), make_markov_task(32, rank=4, device="cpu"),
+                        max_walks=max_walks, local_batch=1, seq_len=4)
+
 PART = bool(jax.config.jax_threefry_partitionable)
 BATCH, N, C, B, W, T = 3, 19, 16, 64, 16, 70
 
@@ -178,15 +191,18 @@ def test_protocol_config_validation():
     from repro_torch.graphs import make_graph
 
     # every protocol field is ported, the zoo's walk variants too: a Plan
-    # takes each config; walk payloads still raise
+    # takes each config; so is the walk payload: a payload plan builds
+    # and runs
     for ported in [dict(algorithm="missingperson"), dict(algorithm="none"),
                    dict(auto_eps=True), dict(analytic_survival=True)] + [
                        dict(walk_variant=v) for v in tprt.WALK_VARIANTS]:
         Experiment(graph=make_graph("ring", 8), protocol=tprt.ProtocolConfig(**ported),
                    steps=5, device="cpu").plan()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Experiment(graph=make_graph("ring", 8), protocol=tprt.ProtocolConfig(), steps=5,
-                   device="cpu", payload=object())
+    (_, replicas), (outs, learn) = Experiment(
+        graph=make_graph("ring", 8), protocol=tprt.ProtocolConfig(z0=4, max_walks=8), steps=3,
+        device="cpu", payload=tiny_payload(8)).run()
+    assert outs.z.shape == (3,) and learn.trained.shape == (3,)
+    assert replicas.steps.shape == (1, 8) and int(learn.trained[0]) == int(outs.z[0])
 
 
 FAIL = dict(burst_times=(70, 5), burst_sizes=(3, 2), p_fail=0.2, p_fail_start=10,

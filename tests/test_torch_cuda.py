@@ -515,3 +515,89 @@ def test_cuda_captured_decode_tokens_equal_eager(cuda, arch):
     got, stats = generate(model, params, toks, 10, eos_id=eos, eos_check_every=1, **kw)
     want, wstats = generate_eager(model, params, toks, 10, eos_id=eos, eos_check_every=1, **kw)
     assert torch.equal(got, want) and stats["decode_steps"] == wstats["decode_steps"]
+
+
+# ---------------------------------------------------------------------------
+# the RW-SGD payload on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("plus", [False, True])
+@pytest.mark.parametrize("batch,n,D,W,B", [
+    pytest.param(4, 64, 8, 16, 512, id="paper-rwsgd"),  # chip_smoke.py phase 10 (a)
+    pytest.param(12, 48, 6, 12, 256, id="fig8"),  # Fig. 8's groups at BENCH_FULL
+])
+def test_cuda_whole_round_at_payload_shapes(cuda, plus, batch, n, D, W, B):
+    """whole_round bitwise its plain version at the payload paths' shapes:
+    regular graphs of degree 8 and 6 (rows narrower than the wide-row
+    cases), W 16 and 12."""
+    _whole_round_case(cuda, plus, make_graph("regular", n, seed=0, degree=D), batch, W, W, B,
+                      1, False, np.random.default_rng(n + D + plus))
+
+
+def _payload_case(cuda, steps=30, seeds=3):
+    """A DecAFork+ group whose round is fused (whole_round), a burst at
+    step 14 so forks copy replicas, and a 1-layer d 32 RW-SGD payload."""
+    from repro_torch.core import FailureConfig, ProtocolConfig
+    from repro_torch.core import simulator as sim
+    from repro_torch.data import make_markov_task
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.model import Model
+    from repro_torch.optim import RwSgdPayload, adamw
+
+    cfg = ModelConfig(name="tiny", arch_type="dense", num_layers=1, d_model=32, d_ff=64,
+                      vocab_size=64, num_heads=2, num_kv_heads=2, head_dim=16, dtype="float32")
+    payload = RwSgdPayload(Model(cfg), adamw(1e-2), make_markov_task(64, rank=4, device=cuda),
+                           max_walks=10, local_batch=1, seq_len=8)
+    pcfg = ProtocolConfig("decafork+", z0=5, max_walks=10, rt_bins=32, protocol_start=8,
+                          eps=1.6, eps2=6.0, estimator_impl="auto")
+    fcfg = FailureConfig(burst_times=(14,), burst_sizes=(2,))
+    setup = sim.make_setup(make_graph("regular", 24, seed=3, degree=4), [pcfg] * seeds,
+                           [fcfg] * seeds, steps, cuda)
+    decision = sim.round_impl_decision(pcfg, fcfg)
+    assert decision.fused
+    return payload, setup, decision
+
+
+def test_cuda_payload_captured_round_is_the_eager_round(cuda):
+    """One captured round (protocol round, replica copies, forward,
+    backward and AdamW) replayed per round equals the eager loop bitwise:
+    StepOutputs, final state, replicas, losses; whole_round launches once
+    per round plus the capture's warm-up round. The backward issues no
+    atomic float sum (``transformer.replica_losses``), so this holds."""
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.outputs import FULL
+    from repro_torch.utils import prng
+
+    payload, setup, decision = _payload_case(cuda)
+    keys = prng.split(prng.key(2, device=cuda), 3)
+    carry = sim.init_payload(keys, setup, payload)
+    want = sim.run_rounds(sim.init_state(keys, setup), setup, 30, FULL, decision,
+                          payload=payload, carry=carry)
+    runner = sim.RoundRunner(setup, FULL, decision, payload)
+    before = whole_round.launches
+    got = runner.run(sim.init_state(keys, setup), setup, sim.init_payload(keys, setup, payload))
+    assert whole_round.launches - before == 30 + 1 and runner.captures == 1
+    _equal_trees(got[0], want[0], "final state and replicas")
+    _equal_trees(tuple(got[1][0]), tuple(want[1][0]), "StepOutputs")
+    _equal_trees(got[1][1], want[1][1], "payload outputs")
+    assert int(got[1][0].forks.sum()) > 0 and int(got[1][1].trained.sum()) > 0
+
+
+def test_cuda_payload_runs_are_bitwise_run_to_run(cuda):
+    """The same run twice through one capture, and once through a second
+    runner (its own capture), is bitwise the same: losses, replicas."""
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.outputs import FULL
+    from repro_torch.utils import prng
+
+    payload, setup, decision = _payload_case(cuda)
+    keys = prng.split(prng.key(4, device=cuda), 3)
+    runs = []
+    first = sim.RoundRunner(setup, FULL, decision, payload)
+    for runner in (first, first, sim.RoundRunner(setup, FULL, decision, payload)):
+        runs.append(runner.run(sim.init_state(keys, setup), setup,
+                               sim.init_payload(keys, setup, payload)))
+    for other in runs[1:]:
+        _equal_trees(other[0], runs[0][0], "final state and replicas")
+        _equal_trees(other[1][1], runs[0][1][1], "payload outputs")

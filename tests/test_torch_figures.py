@@ -16,8 +16,8 @@ graph, n 100, d 8) against the reference's figure scripts
     (``estimator_impl="compare", round_impl="unfused"``), one reference
     ensemble per scenario; the port runs its kernels' path;
     ``theory_bounds``' bounds are equal;
-  - the command line: ``fig8`` raises naming ROADMAP item 8, results go
-    to ``--out``.
+  - the command line: ``fig8`` runs at a tiny override, results go to
+    ``--out``.
 
 Figs. 4 and 6 and ``auto_eps`` are in ``test_torch_figures_cases.py``,
 Fig. 9 in ``test_torch_zoo.py`` and ``test_torch_zoo_grid.py``.
@@ -245,9 +245,16 @@ def test_theory_bounds_match_jax(tmp_path, monkeypatch):
     assert got["cor3_z_bound_at_500"] == float(oc[-1])
 
 
-def test_command_line(tmp_path, capsys):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli.main(["fig8", "--device", "cpu", "--out", str(tmp_path)])
+def test_command_line(tmp_path, capsys, monkeypatch):
+    # fig8 (the RW-SGD payload) runs through the command line at a tiny
+    # override: 6 rounds, 1 seed
+    from repro_torch.figures import fig8_learning
+
+    monkeypatch.setattr(fig8_learning, "STEPS", 6)
+    monkeypatch.setattr(fig8_learning, "SEEDS", 1)
+    monkeypatch.setattr(common, "PARTITIONABLE", PART)
+    assert cli.main(["fig8", "--device", "cpu", "--out", str(tmp_path)]) == 0
+    assert len(json.load(open(tmp_path / "fig8_learning.json"))["rows"]) == 9
     with pytest.raises(SystemExit):
         cli.main(["fig42", "--device", "cpu"])
     assert set(cli.BENCHES) == {"fig1", "fig2", "fig3", "fig4", "fig5", "fig6", "fig7", "fig8",

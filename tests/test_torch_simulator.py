@@ -199,16 +199,28 @@ def test_config_conversion_and_guards():
                                     p_fail=np.float32(0.25)))
     assert f.burst_times == (5, 9) and f.p_fail == 0.25
     g = make_graph("ring", 8)
-    # the zoo's variants and attacks pass the Plan's checks; payloads and
-    # durable sweeps still raise
+    # the zoo's variants and attacks pass the Plan's checks, and so does
+    # the walk payload (its plan builds and runs); durable sweeps still
+    # raise
     jump = Experiment(graph=g,
                       protocol=ProtocolConfig(walk_variant="jump", estimator_impl="auto"),
                       failures=FailureConfig(pacman_mobile=True, pacman_nodes=(3,)),
                       steps=5, device="cpu")
     (_, _, decision), = jump.plan().round_decisions()
     assert decision.reason == "walk_variant 'jump' has no fused round"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Experiment(graph=g, protocol=ProtocolConfig(), steps=5, device="cpu", payload=object())
+    from repro_torch.data import make_markov_task
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.model import Model
+    from repro_torch.optim import RwSgdPayload, adamw
+
+    cfg = ModelConfig(name="tiny", arch_type="dense", num_layers=1, d_model=16, d_ff=32,
+                      vocab_size=32, num_heads=2, num_kv_heads=2, head_dim=8, dtype="float32")
+    payload = RwSgdPayload(Model(cfg), adamw(1e-2), make_markov_task(32, device="cpu"),
+                           max_walks=16, local_batch=1, seq_len=4)
+    plan = Experiment(graph=g, protocol=ProtocolConfig(max_walks=16), steps=4, device="cpu",
+                      payload=payload).plan()
+    outs, learn = plan.ensemble(2)
+    assert outs.fork_parent.shape == (2, 4, 16) and learn.loss.shape == (2, 4, 16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Experiment(graph=g, protocol=ProtocolConfig(), steps=5, device="cpu").sweep(
             [(ProtocolConfig(), FailureConfig())], seeds=1, store="results")

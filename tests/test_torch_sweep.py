@@ -381,7 +381,7 @@ def test_stacking_and_results():
     assert res["y"] == 2 and res[0] == 1 and len(res) == 2 and res.payloads is None
     with pytest.raises(KeyError, match="available scenarios"):
         res["z"]
-    with pytest.raises(KeyError, match="item 8"):
+    with pytest.raises(KeyError, match="without a payload"):
         res.payload(0)
 
 
@@ -396,8 +396,19 @@ def test_guards_name_their_roadmap_items():
         exp.plan().sweep_stacked(seeds=1, segment_steps=2)
     with pytest.raises(NotImplementedError, match="item 11"):
         Experiment(graph=g, protocol=p, steps=5, device="cpu", placement="sharded")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Experiment(graph=g, scenarios=scen[:1], steps=5, device="cpu", payload=object())
+    # the walk payload (item 8) is ported: a payload sweep builds and runs
+    from repro_torch.data import make_markov_task
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.model import Model
+    from repro_torch.optim import RwSgdPayload, adamw
+
+    cfg = ModelConfig(name="tiny", arch_type="dense", num_layers=1, d_model=16, d_ff=32,
+                      vocab_size=32, num_heads=2, num_kv_heads=2, head_dim=8, dtype="float32")
+    payload = RwSgdPayload(Model(cfg), adamw(1e-2), make_markov_task(32, device="cpu"),
+                           max_walks=p.max_walks, local_batch=1, seq_len=4)
+    res = Experiment(graph=g, scenarios=scen[:1], steps=3, device="cpu",
+                     payload=payload).sweep(seeds=1)
+    assert res.payload("a").mean_loss.shape == (1, 3) and res["a"].z.shape == (1, 3)
     with pytest.raises(ValueError, match="duplicate"):
         Experiment(graph=g, scenarios=scen, steps=5, device="cpu").sweep(seeds=1)
     with pytest.raises(ValueError, match="base scenario"):
