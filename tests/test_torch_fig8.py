@@ -55,6 +55,17 @@ LOSS_BOUND = 1e-3
 INT_FIELDS = ("z", "forks", "terms", "failures", "fork_parent", "terminated")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file: under xdist each worker shares the
+    machine's cores with the others, and torch's default of one thread
+    per core oversubscribes them (the results do not depend on it)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def fields(cfg) -> dict:
     """A config's fields as plain Python values (tuples for arrays)."""
     return {f.name: (tuple(np.asarray(v).reshape(-1).tolist())

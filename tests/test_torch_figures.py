@@ -247,13 +247,22 @@ def test_theory_bounds_match_jax(tmp_path, monkeypatch):
 
 def test_command_line(tmp_path, capsys, monkeypatch):
     # fig8 (the RW-SGD payload) runs through the command line at a tiny
-    # override: 6 rounds, 1 seed
+    # override: 6 rounds, 1 seed, on one torch thread (under xdist the
+    # workers share the cores, and torch's thread per core then slows its
+    # many small ops a hundredfold)
+    import torch
+
     from repro_torch.figures import fig8_learning
 
     monkeypatch.setattr(fig8_learning, "STEPS", 6)
     monkeypatch.setattr(fig8_learning, "SEEDS", 1)
     monkeypatch.setattr(common, "PARTITIONABLE", PART)
-    assert cli.main(["fig8", "--device", "cpu", "--out", str(tmp_path)]) == 0
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert cli.main(["fig8", "--device", "cpu", "--out", str(tmp_path)]) == 0
+    finally:
+        torch.set_num_threads(threads)
     assert len(json.load(open(tmp_path / "fig8_learning.json"))["rows"]) == 9
     with pytest.raises(SystemExit):
         cli.main(["fig42", "--device", "cpu"])

@@ -69,6 +69,17 @@ TINY = dict(name="tiny", arch_type="dense", num_layers=1, d_model=32, d_ff=64, v
 FAIL = dict(burst_times=(14,), burst_sizes=(2,))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file: under xdist each worker shares the
+    machine's cores with the others, and torch's default of one thread
+    per core oversubscribes them (the results do not depend on it)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _pkw(alg="decafork", **kw):
     base = dict(algorithm=alg, z0=Z0, max_walks=W, rt_bins=32, protocol_start=8, eps=1.6,
                 eps2=6.0)

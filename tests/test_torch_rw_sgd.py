@@ -50,6 +50,17 @@ from repro_torch.utils.tree import tree_leaves, tree_replace  # noqa: E402
 PART = bool(jax.config.jax_threefry_partitionable)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for this file: under xdist each worker shares the
+    machine's cores with the others, and torch's default of one thread
+    per core oversubscribes them (the results do not depend on it)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _flat(tree, prefix=""):
     """A nested dict of arrays as dotted paths -> numpy."""
     out = {}
