@@ -6,7 +6,7 @@
         --rwsgd-steps 300
                                         # a quick pass through every phase
 
-Every round of phases 3-5 and 7-10 replays a captured CUDA graph (the
+Every round of phases 3-5 and 7-11 replays a captured CUDA graph (the
 Plan's executable cache, ``repro_torch.api.plan``), and every decode
 step of phase 6 too (``launch.serve.DecodeGraph``); each captured run's
 capture is timed apart from its replays, and short eager windows of the
@@ -177,7 +177,31 @@ Phases, each printed on its own line:
    whole_round's launches counted as in phase 9, every DecAFork /
    DecAFork+ row still training at the end, at most 3 new cache slots.
    Phase 2 holds whole_round bitwise to its plain version at these
-   paths' shapes (batch 4, n 64, D 8, W 16; batch 12, n 48, D 6, W 12).
+   paths' shapes (batch 4, n 64, D 8, W 16; batch 12, n 48, D 6, W 12);
+11. durable execution and the service (``Plan.*_segmented``,
+   ``ResultStore``, ``ExperimentService``). (a) Phase 3's DecAFork
+   ensemble through ``Plan.ensemble_segmented(50, segment_steps=steps/9,
+   store=ResultStore(chiprun_out/durable))`` in a spawned child process,
+   which the parent SIGKILLs once the store holds an intact snapshot at
+   4/9 of the run (4,000 of 9,000 steps); the parent then runs the same
+   line, which must resume from the latest intact snapshot, capture no
+   graph (phase 3's slot serves it), launch whole_round once per round it
+   replays (read from the graph) and end bitwise phase 3's straight
+   captured run; the step it resumed at, the bytes of each snapshot, the
+   seconds of each boundary write and the ms per round against phase 3's
+   are printed. (b) Phase 7's scenarios (Figs. 1 and 5) at 600 steps, 50
+   seeds, decisions from step 50 and the bursts at 200 and 400, split
+   over three caller threads that submit to one ``ExperimentService``
+   (background worker, a store): they must coalesce into phase 7's three
+   groups, one injected TransientFault at ``service.run_group`` must
+   retry, each caller's rows must be bitwise a private ``sweep`` of its
+   scenarios, the same submissions again must be store hits (no runner
+   run, no capture), and the main thread launches CUDA work and
+   synchronises on it throughout, during the worker's captures too. (c)
+   Phase 10 (b)'s smoke-config payload run (2 seeds, 60 rounds) in
+   segments of 20 with a SimulatedKill at the second boundary, then
+   resumed: outputs, losses and final replicas bitwise the straight
+   captured run.
 
 Before the last line it prints the card's name and power limit, then one
 JSON object with every kernel's launches, error and times; the last line
@@ -1086,6 +1110,8 @@ def main_path(graph, steps, seeds, kernel_device_ms):
                         forks=int(outs.forks.sum()), terms=int(outs.terms.sum()),
                         whole_round_launches=launches, graph_kernel_nodes=runner.graph.kernel_nodes,
                         head=outs.map(lambda v: v[:, :EAGER_WINDOW]))
+        if alg == "decafork":
+            res[alg]["outs"] = outs  # phase 11 resumes this run
         log("main", alg=alg, steps=steps, seeds=seeds, wall_s=f"{wall:.3f}",
             capture_s=f"{runner.capture_s:.3f}", captured_ms_per_round=f"{ms_round:.4f}",
             trajectory_rounds_per_s=f"{seeds * steps / replay_s:.1f}",
@@ -2307,6 +2333,321 @@ def payload_phase(steps, seeds, cpu, out):
     return dict(train=train, parity=parity, fig8=fig8), counts
 
 
+# ---------------------------------------------------------------------------
+# phase 11: durable execution and the experiment service
+# ---------------------------------------------------------------------------
+
+
+def timed_store(root):
+    """A ``ResultStore`` at ``root`` that times its boundary writes and
+    records their bytes, and the step each resume starts from (phase 11).
+    A write's time starts once the device has finished the segment (the
+    snapshot's copy to the host would wait for it)."""
+    import torch
+
+    from repro_torch.api import ResultStore
+
+    class Timed(ResultStore):
+        def put_segment(self, key, steps_done, snapshot, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().put_segment(key, steps_done, snapshot, **kw)
+            size = os.path.getsize(self._segment_base(key, steps_done) + ".npz")
+            self.writes.append(dict(steps_done=steps_done, s=time.perf_counter() - t0,
+                                    bytes=size))
+
+        def latest_segment(self, key, max_steps=None, device="cpu"):
+            t0 = time.perf_counter()
+            found = super().latest_segment(key, max_steps, device)
+            self.resumed_at = None if found is None else found[0]
+            self.load_s = time.perf_counter() - t0
+            return found
+
+    store = Timed(root)
+    store.writes, store.resumed_at, store.load_s = [], None, 0.0
+    return store
+
+
+def durable_child(steps, seg, root):
+    """Phase 11 (a)'s child process: phase 3's DecAFork ensemble in
+    segments of ``seg`` rounds with boundary snapshots in ``root``, until
+    its parent kills it."""
+    from repro_torch.api import ResultStore
+    from repro_torch.graphs import make_graph
+
+    graph = make_graph("regular", PAPER["n"], seed=0, degree=PAPER["degree"])
+    main_experiment(graph, "decafork", steps).plan().ensemble_segmented(
+        PAPER["seeds"], segment_steps=seg, store=ResultStore(root))
+
+
+def durable_resume(graph, steps, phase3):
+    """Phase 11 (a): phase 3's DecAFork ensemble through
+    ``Plan.ensemble_segmented`` in a spawned child that the parent
+    SIGKILLs once the store holds a snapshot at 4/9 of the run; then the
+    same line here, which must resume from the latest intact snapshot,
+    capture no graph, launch whole_round once per round it replays (read
+    from the graph) and end bitwise phase 3's straight captured run.
+    Returns (its numbers, whole_round's launches)."""
+    import multiprocessing
+    import shutil
+    import signal
+
+    import torch
+
+    from repro_torch.api import cache_stats
+    from repro_torch.api import plan as plan_mod
+    from repro_torch.kernels import whole_round
+
+    seeds, seg = PAPER["seeds"], max(1, steps // 9)
+    kill_at = 4 * seg
+    root = os.path.join(ROOT, "chiprun_out", "durable")
+    shutil.rmtree(root, ignore_errors=True)
+    plan = main_experiment(graph, "decafork", steps).plan()
+    sig = plan._signature("ensemble", plan.pcfg, plan.fcfg, plan.decision, seeds)
+    store = timed_store(root)
+    skey = store.sweep_key(sig, graph, (plan.pcfg, plan.fcfg), seeds, plan_mod._as_key(0, "cpu"))
+    intact = lambda: [d for d in store.segment_steps_on_disk(skey)  # noqa: E731
+                      if os.path.exists(store._segment_base(skey, d) + ".meta.json")]
+    child = multiprocessing.get_context("spawn").Process(target=durable_child,
+                                                          args=(steps, seg, root))
+    t0 = time.perf_counter()
+    child.start()
+    try:
+        while not any(d >= kill_at for d in intact()):
+            if not child.is_alive():
+                raise AssertionError(f"phase 11: the child exited ({child.exitcode}) before a "
+                                     f"snapshot at {kill_at} steps")
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("phase 11: no snapshot within 300 s")
+            time.sleep(0.02)
+        os.kill(child.pid, signal.SIGKILL)
+    finally:
+        child.join(60)
+        if child.is_alive():
+            child.kill()
+            child.join()
+    child_s = time.perf_counter() - t0
+    if child.exitcode != -signal.SIGKILL:
+        raise AssertionError(f"phase 11: the child ended with {child.exitcode}, not SIGKILL")
+    latest = max(intact())
+    runner = plan_mod._EXECUTABLES[("ensemble", sig)]  # phase 3's slot
+    graph_launches(runner, "phase 11", {"whole_round": 1})
+    st = cache_stats()
+    before = whole_round.launches
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rec = plan.ensemble_segmented(seeds, segment_steps=seg, store=store)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = whole_round.launches - before
+    replayed = steps - store.resumed_at if store.resumed_at is not None else None
+    if store.resumed_at != latest:
+        raise AssertionError(f"phase 11: resumed at {store.resumed_at}, the latest intact "
+                             f"snapshot is {latest}")
+    if cache_stats() != st:
+        raise AssertionError(f"phase 11: the resumed run captured ({st} -> {cache_stats()})")
+    if launches != replayed * runner.graph.per_replay[whole_round]:
+        raise AssertionError(f"phase 11: whole_round launched {launches} times for "
+                             f"{replayed} replayed rounds")
+    same_leaves(tuple(rec), tuple(phase3["outs"]), "phase 11: resumed vs phase 3's straight run")
+    if store.segment_steps_on_disk(skey):
+        raise AssertionError("phase 11: the finished run left snapshots")
+    write_s = sum(w["s"] for w in store.writes)
+    ms_round = (wall - write_s - store.load_s) * 1e3 / replayed
+    res = dict(steps=steps, seeds=seeds, segment_steps=seg, kill_at=kill_at,
+               child_s=child_s, resumed_at=store.resumed_at, replayed_rounds=replayed,
+               whole_round_launches=launches, wall_s=wall, load_s=store.load_s,
+               writes=store.writes, write_s_per_boundary=write_s / max(1, len(store.writes)),
+               bytes_per_snapshot=[w["bytes"] for w in store.writes],
+               ms_per_round=ms_round, phase3_ms_per_round=phase3["ms_per_round"],
+               outputs="bitwise phase 3's straight captured run", new_captures=0)
+    log("durable", killed="SIGKILL", child_s=f"{child_s:.1f}", resumed_at=store.resumed_at,
+        replayed_rounds=replayed, load_s=f"{store.load_s:.3f}",
+        bytes_per_snapshot=res["bytes_per_snapshot"],
+        write_s_per_boundary=f"{res['write_s_per_boundary']:.3f}",
+        ms_per_round=f"{ms_round:.4f}", phase3_ms_per_round=f"{phase3['ms_per_round']:.4f}",
+        whole_round_launches=launches, new_captures=0,
+        outputs="bitwise phase 3's straight captured run")
+    shutil.rmtree(root, ignore_errors=True)  # the snapshots are ~100 MB each
+    return res, launches
+
+
+def service_callers(graph):
+    """Phase 11 (b): phase 7's scenarios (Figs. 1 and 5) at 600 steps,
+    decisions from step 50 and the bursts at 200 and 400, split over three
+    caller threads that submit in turn to one ``ExperimentService``
+    (background worker, a store); the main thread keeps launching CUDA
+    work and synchronising on it while the worker captures. The calls
+    must coalesce into phase 7's three groups, survive one injected
+    TransientFault at ``service.run_group`` by a retry, and give each
+    caller rows bitwise a private ``sweep`` of its scenarios; the same
+    three submissions again must be store hits that run no round and
+    capture nothing. Returns (its numbers, whole_round's launches)."""
+    import shutil
+    import threading
+
+    import torch
+
+    from repro_torch.api import Experiment, ExperimentService, cache_stats
+    from repro_torch.core import simulator as sim
+    from repro_torch.kernels import whole_round
+    from repro_torch.utils.faults import FaultPlan, Raise, TransientFault
+
+    steps, seeds = 600, PAPER["seeds"]
+    scen = figure_scenarios(50, dict(burst_times=(200, 400), burst_sizes=PAPER["burst_sizes"]),
+                            eps_mp=200.0)
+    callers = [scen[0:2], scen[2:3] + scen[4:5], scen[3:4] + scen[5:6]]
+    exp = Experiment(graph=graph, scenarios=scen, steps=steps, outputs="full", device="cuda")
+    root = os.path.join(ROOT, "chiprun_out", "service")
+    shutil.rmtree(root, ignore_errors=True)
+    state = {"capturing": False, "work_during_capture": 0, "runs": 0}
+    real_captured, real_run = sim.Captured, sim.RoundRunner.run
+
+    class Watched(real_captured):
+        def __init__(self, *a, **kw):
+            state["capturing"] = True
+            try:
+                super().__init__(*a, **kw)
+            finally:
+                state["capturing"] = False
+
+    def counted_run(self, *a, **kw):
+        state["runs"] += 1
+        return real_run(self, *a, **kw)
+
+    def submit_all(svc):
+        futures, turns = [None] * 3, [threading.Event() for _ in range(4)]
+        turns[0].set()
+
+        def caller(i):
+            turns[i].wait(60)
+            futures[i] = svc.submit(callers[i], seeds=seeds)
+            turns[i + 1].set()
+
+        threads = [threading.Thread(target=caller, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        a = torch.randn(1024, 1024, device="cuda")
+        work = 0
+        while not turns[3].is_set() or not all(f.done() for f in futures):
+            b = a @ a
+            if not torch.isfinite(b[0, 0]).item():
+                raise AssertionError("phase 11: the caller's CUDA work went wrong")
+            work += 1
+            state["work_during_capture"] += state["capturing"]
+        for t in threads:
+            t.join(60)
+        return [f.result(timeout=300) for f in futures], work
+
+    sim.Captured, sim.RoundRunner.run = Watched, counted_run
+    try:
+        st0, launches0 = cache_stats(), whole_round.launches
+        svc = ExperimentService(exp, store=root, autostart=True, linger=0.2, backoff=0.0)
+        fp = FaultPlan().at("service.run_group", Raise(TransientFault("phase 11")))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with fp.active():
+            first, work = submit_all(svc)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        stats = dict(svc.stats)
+        cold_captures = cache_stats()["graphs_captured"] - st0["graphs_captured"]
+        runs_cold = state["runs"]
+        if stats["batches"] != 3 or stats["retries"] != 1 or stats["splits"] != 0:
+            raise AssertionError(f"phase 11: service stats {stats} (3 batches, 1 retry)")
+        if fp.pending("service.run_group") or runs_cold != 3:
+            raise AssertionError(f"phase 11: {runs_cold} runner runs for 3 groups")
+        if state["work_during_capture"] == 0:
+            raise AssertionError("phase 11: no caller CUDA work ran during a worker capture")
+        st1, runs1 = cache_stats(), state["runs"]
+        t1 = time.perf_counter()
+        again, _ = submit_all(svc)
+        warm_s = time.perf_counter() - t1
+        svc.close(timeout=60)
+        if state["runs"] != runs1 or cache_stats() != st1 or svc.store.hits != 3:
+            raise AssertionError(f"phase 11: the resubmission ran {state['runs'] - runs1} "
+                                 f"runs, store hits {svc.store.hits}")
+        launches = whole_round.launches - launches0
+        for i, (res, res2) in enumerate(zip(first, again)):
+            private = exp.plan().sweep(callers[i], seeds=seeds)
+            for s in callers[i]:
+                same_leaves(tuple(res[s.name]), tuple(private[s.name]),
+                            f"phase 11: caller {i} {s.name} vs a private sweep")
+                same_leaves(tuple(res2[s.name]), tuple(res[s.name]),
+                            f"phase 11: caller {i} {s.name} store hit")
+        launches_all = whole_round.launches - launches0
+    finally:
+        sim.Captured, sim.RoundRunner.run = real_captured, real_run
+        shutil.rmtree(root, ignore_errors=True)
+    res = dict(steps=steps, seeds=seeds, callers=[[s.name for s in c] for c in callers],
+               stats=stats, cold_s=cold_s, cold_captures=cold_captures, warm_s=warm_s,
+               caller_cuda_iterations=work, during_capture=state["work_during_capture"],
+               coalesced_whole_round_launches=launches, rows="bitwise the private sweeps")
+    log("service", callers=3, groups=stats["batches"], coalesced=stats["coalesced"],
+        retries=stats["retries"], cold_s=f"{cold_s:.2f}", captures=cold_captures,
+        caller_cuda_iterations=work, during_capture=state["work_during_capture"],
+        warm_resubmission_s=f"{warm_s:.3f}", warm_runs=0, warm_captures=0,
+        rows="bitwise the private sweeps")
+    return res, launches_all
+
+
+def durable_payload():
+    """Phase 11 (c): phase 10 (b)'s smoke-config payload run (2 seeds, 60
+    rounds) straight, then in segments of 20 with a SimulatedKill at the
+    second boundary, then resumed from the store: the losses, every
+    output and the final replicas bitwise the straight captured run.
+    Returns (its numbers, whole_round's launches)."""
+    import shutil
+
+    from repro_torch.kernels import whole_round
+    from repro_torch.utils import prng
+    from repro_torch.utils.faults import FaultPlan, Kill, SimulatedKill
+
+    p = RWSGD_PARITY
+    plan, keys = rwsgd_parity_plan("cuda")
+    setup = plan._setup(p["seeds"])
+    root = os.path.join(ROOT, "chiprun_out", "durable_payload")
+    shutil.rmtree(root, ignore_errors=True)
+    before = whole_round.launches
+    t0 = time.perf_counter()
+    want = plan._execute("ensemble", keys, setup, plan.fcfg, plan.decision)
+    sig = plan._signature("ensemble", plan.pcfg, plan.fcfg, plan.decision, p["seeds"])
+    store, skey = plan._segment_store(root, sig, (plan.pcfg, plan.fcfg), p["seeds"],
+                                      prng.key(0))
+    fp = FaultPlan().skip("segment.boundary", 1).at("segment.boundary", Kill())
+    try:
+        with fp.active():
+            plan._execute("ensemble", keys, setup, plan.fcfg, plan.decision, segment_steps=20,
+                          store=store, skey=skey)
+        raise AssertionError("phase 11: the payload run was not killed")
+    except SimulatedKill:
+        pass
+    resumed_at = store.segment_steps_on_disk(skey)[0]
+    got = plan._execute("ensemble", keys, setup, plan.fcfg, plan.decision, segment_steps=20,
+                        store=store, skey=skey)
+    (s1, c1), (o1, l1) = want
+    (s2, c2), (o2, l2) = got
+    same_leaves((s1, c1), (s2, c2), "phase 11 payload: final state and replicas")
+    same_leaves(tuple(o1) + tuple(l1), tuple(o2) + tuple(l2), "phase 11 payload: outputs")
+    launches = whole_round.launches - before
+    shutil.rmtree(root, ignore_errors=True)
+    res = dict(steps=p["steps"], seeds=p["seeds"], segment_steps=20, killed_at_boundary=2,
+               resumed_at=resumed_at, wall_s=time.perf_counter() - t0,
+               outputs_losses_final_replicas="bitwise the straight captured run")
+    log("durable_payload", **res)
+    return res, launches
+
+
+def durable_phase(graph, steps, phase3):
+    """Phase 11: (a) :func:`durable_resume`, (b) :func:`service_callers`,
+    (c) :func:`durable_payload`; returns (results, whole_round's
+    launches)."""
+    resume, n_a = durable_resume(graph, steps, phase3)
+    service, n_b = service_callers(graph)
+    payload, n_c = durable_payload()
+    return dict(resume=resume, service=service, payload=payload), n_a + n_b + n_c
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=MAIN_STEPS,
@@ -2433,6 +2774,10 @@ def main() -> int:
     for k, v in payload_counts.items():
         counts[k] += v
     lap("10 payload")
+    durable, counts_11 = durable_phase(graph, args.steps, main_res["decafork"])
+    main_res["decafork"].pop("outs")
+    counts["whole_round"] += counts_11
+    lap("11 durable")
     log("time", **{k.replace(" ", "_"): f"{v:.1f}" for k, v in phase_s.items()})
 
     for r in rows:
@@ -2446,7 +2791,7 @@ def main() -> int:
                   build_s_by_source=build, sass=sass, kernels=rows,
                   main=main_res, profile=profile, parity=parity, unfused=unfused,
                   captured_vs_eager=captured, serve=serve, sweep=sweep, zoo=zoo,
-                  figures=figures, payload=payload, phase_s=phase_s)
+                  figures=figures, payload=payload, durable=durable, phase_s=phase_s)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(detail, fh, indent=1)

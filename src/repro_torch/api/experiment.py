@@ -112,10 +112,13 @@ class Experiment:
         return self.plan().ensemble(seeds, base_key)
 
     def sweep(self, scenarios: Sequence | None = None, *, seeds: int,
-              base_key: int | torch.Tensor = 0, store=None) -> SweepResult:
+              base_key: int | torch.Tensor = 0, store=None,
+              segment_steps: int | None = None) -> SweepResult:
         """A mixed scenario list, one batch per group; see :meth:`Plan.sweep`
-        (``store=`` raises: durable execution is not ported yet)."""
-        return self.plan().sweep(scenarios, seeds=seeds, base_key=base_key, store=store)
+        (``store=`` persists each group's results on disk, ``segment_steps=``
+        runs them in resumable segments)."""
+        return self.plan().sweep(scenarios, seeds=seeds, base_key=base_key, store=store,
+                                 segment_steps=segment_steps)
 
     def __repr__(self):
         label = f" {self.name!r}" if self.name else ""

@@ -24,25 +24,37 @@ the captured round, and every entry point returns the reference's pair
 ``((final, carry), (outputs, payload outputs))`` (``ensemble`` and
 ``sweep_stacked`` the outputs pair, ``sweep`` a SweepResult with
 ``payloads``).
+
+Durable execution (``run_segmented``, ``ensemble_segmented``,
+``segment_steps=`` and ``store=``; see :class:`Plan` and
+``api/store.py``): the reference compiles one program per segment length
+(``seg_len`` is in its signature); here a segment is the same captured
+round replayed from a mid-run state, so a segmented run and a straight
+run of one structure share one slot and a segment captures nothing.
 """
 from __future__ import annotations
 
+import threading
+import warnings
 from typing import Sequence, Tuple
 
 import torch
 
 from repro_torch.api.results import SweepResult
+from repro_torch.api.store import ResultStore
 from repro_torch.core import failures as flr
 from repro_torch.core import simulator as sim
 from repro_torch.core.outputs import RecordedOutputs
 from repro_torch.sweep.scenario import as_pair, group_scenarios, stack_configs
 from repro_torch.utils import prng
+from repro_torch.utils.faults import fault_point
 from repro_torch.utils.tree import tree_map
 
 __all__ = ["Plan", "cache_stats", "clear_cache", "executable", "payload_key", "plan_signature"]
 
 # the process-wide executable cache: (mode, signature) -> RoundRunner
 _EXECUTABLES: dict = {}
+_CACHE_LOCK = threading.Lock()
 
 
 def payload_key(payload):
@@ -107,11 +119,13 @@ def plan_signature(
 
 def executable(mode: str, signature: tuple, build):
     """The process-wide cache lookup: one runner per (mode, signature),
-    made by ``build()`` on first use."""
+    made by ``build()`` on first use. A runner is shared by every caller
+    of its structure; it holds its own lock for each run."""
     key = (mode, signature)
-    runner = _EXECUTABLES.get(key)
-    if runner is None:
-        runner = _EXECUTABLES[key] = build()
+    with _CACHE_LOCK:
+        runner = _EXECUTABLES.get(key)
+        if runner is None:
+            runner = _EXECUTABLES[key] = build()
     return runner
 
 
@@ -149,14 +163,6 @@ def _as_key(key, device) -> torch.Tensor:
     return torch.as_tensor(key, dtype=torch.int64, device=device)
 
 
-def _check_unported(store, segment_steps) -> None:
-    if store is not None or segment_steps is not None:
-        raise NotImplementedError(
-            "store= and segment_steps= (durable, resumable sweeps) are not "
-            "ported yet (ROADMAP.md queue 1, item 9: durable execution)"
-        )
-
-
 class Plan:
     """The plan of one Experiment; build it with ``Experiment.plan()``.
 
@@ -164,7 +170,21 @@ class Plan:
     ``sweep_stacked`` runs one group of scenarios (one static structure)
     as ``S * seeds`` rows, scenario-major; ``sweep`` runs any scenario
     list, one batch per group, results in input order. A payload is
-    validated against every scenario's protocol config here."""
+    validated against every scenario's protocol config here.
+
+    Durable execution: ``run_segmented`` / ``ensemble_segmented`` and
+    ``segment_steps=`` on ``sweep_stacked`` / ``sweep`` run the same
+    rounds in resumable segments, bitwise the straight call. A segment
+    replays the straight run's captured round from a mid-run state
+    (``RoundRunner.run(rounds=, start=)``), so it uses the straight
+    run's cache slot and captures nothing new: the segment length is not
+    part of :func:`plan_signature`. With ``store=`` (None | ``'env'`` |
+    a path | a :class:`~repro_torch.api.store.ResultStore`) each
+    boundary writes a snapshot (the state, the payload's carry and the
+    outputs so far) under the run's content key, and a killed run
+    resumes from its deepest loadable snapshot whatever chunking it
+    runs with; ``sweep_stacked(store=)`` also answers a finished call
+    from disk without running anything."""
 
     def __init__(self, experiment):
         self.experiment = experiment
@@ -199,21 +219,30 @@ class Plan:
                 "scenarios)"
             )
 
-    def _execute(self, mode: str, keys, setup: sim.Setup, fcfg, decision):
-        """``setup.steps`` rounds from the initial state of ``keys``
-        through the cached runner of this structure."""
-        if self.payload is not None:
-            self.payload.validate(setup.pcfg)
-        sig = plan_signature(
-            mode, setup.n, int(setup.neighbors.shape[1]), setup.steps, setup.pcfg,
-            _schedule_lens(fcfg), self.spec, fcfg.static_fields, batch=int(keys.shape[0]),
+    def _signature(self, mode: str, pcfg, fcfg, decision, batch: int) -> tuple:
+        """The runner signature of ``batch`` rows of this structure (the
+        padded ``fcfg`` carries the group's schedule widths)."""
+        return plan_signature(
+            mode, self.graph.n, int(self.graph.neighbors.shape[1]), self.steps, pcfg,
+            _schedule_lens(fcfg), self.spec, fcfg.static_fields, batch=batch,
             device=self.device, partitionable=self.partitionable, decision=decision,
             payload=self.payload, pspec=self.pspec,
         )
+
+    def _execute(self, mode: str, keys, setup: sim.Setup, fcfg, decision, *,
+                 segment_steps: int | None = None, store=None, skey: str | None = None):
+        """``setup.steps`` rounds from the initial state of ``keys``
+        through the cached runner of this structure, straight or in
+        segments (:meth:`_drive_segments`)."""
+        if self.payload is not None:
+            self.payload.validate(setup.pcfg)
+        sig = self._signature(mode, setup.pcfg, fcfg, decision, int(keys.shape[0]))
         runner = executable(mode, sig, lambda: sim.RoundRunner(
             setup, self.spec, decision, self.payload, self.pspec))
-        carry = None if self.payload is None else sim.init_payload(keys, setup, self.payload)
-        return runner.run(sim.init_state(keys, setup), setup, carry)
+        if segment_steps is None:
+            state, carry = sim.init_carry(keys, setup, self.payload)
+            return runner.run(state, setup, carry)
+        return self._drive_segments(mode, runner, keys, setup, segment_steps, store, skey)
 
     def _outputs(self, result, fn):
         """``fn`` applied to every recorded tensor of a run's outputs
@@ -224,6 +253,72 @@ class Plan:
         return rec.map(fn), (pouts.map(fn) if isinstance(pouts, RecordedOutputs)
                              else tree_map(fn, pouts))
 
+    def _output_tensors(self, outputs) -> list:
+        return list(outputs) if self.payload is None else list(outputs[0]) + list(outputs[1])
+
+    # -- durable segmented execution -----------------------------------------
+    #
+    # Every random stream folds the CARRIED step counter ``t`` (never a
+    # loop index), so a run cut into segments is bitwise the straight
+    # one. With a store, each boundary writes a self-contained snapshot
+    # (carry + outputs so far) under the run's content key, so a killed
+    # process resumes from the deepest loadable snapshot regardless of
+    # the chunking it now uses.
+
+    def _segment_store(self, store, sig, configs, seeds, base):
+        store = ResultStore.resolve(store)
+        if store is None:
+            return None, None
+        return store, store.sweep_key(sig, self.graph, configs, seeds, base)
+
+    def _drive_segments(self, mode, runner, keys, setup, segment_steps, store, skey):
+        """One segmented run to completion through ``runner``, in the
+        format of ``runner.run``. Each segment's outputs land in the run's
+        own (rows, steps, ...) outputs. Snapshot writes are best-effort —
+        a failing store degrades to lost progress and a warning, never a
+        failed run — and fault site ``segment.boundary`` fires after
+        every boundary."""
+        segment_steps = int(segment_steps)
+        if segment_steps < 1:
+            raise ValueError(f"segment_steps must be >= 1, got {segment_steps}")
+        steps = self.steps
+        done, recorded = 0, None
+        found = None if store is None else store.latest_segment(
+            skey, max_steps=steps, device=self.device)
+        if found is not None:
+            done, snap = found
+            (state, carry), recorded = snap["carry"], snap["recorded"]
+        else:
+            state, carry = sim.init_carry(keys, setup, self.payload)
+        outputs = None
+        while done < steps:
+            seg = min(segment_steps, steps - done)
+            result = runner.run(state, setup, carry, rounds=seg, outputs=outputs, start=done)
+            if self.payload is None:
+                state, outputs = result
+            else:
+                (state, carry), outputs = result
+            if recorded is not None:  # resumed: the snapshot's columns
+                for o, r in zip(self._output_tensors(outputs), self._output_tensors(recorded)):
+                    o[:, :r.shape[1]].copy_(r)
+                recorded = None
+            done += seg
+            if store is not None and done < steps:
+                try:
+                    store.put_segment(
+                        skey, done,
+                        {"carry": (state, carry),
+                         "recorded": self._outputs(outputs, lambda v: v[:, :done])},
+                        extra_meta={"mode": mode, "total_steps": steps},
+                    )
+                except Exception as exc:  # write-behind is best-effort
+                    warnings.warn(f"segment write-behind failed at {done}/{steps} "
+                                  f"steps: {exc!r}")
+            fault_point("segment.boundary")
+        return (state, outputs) if self.payload is None else ((state, carry), outputs)
+
+    # -- entry points ----------------------------------------------------------
+
     def run(self, key=0):
         """One trajectory: ``(final SimState, RecordedOutputs)``, with a
         payload ``((final SimState, carry), (RecordedOutputs, payload
@@ -232,6 +327,20 @@ class Plan:
         self._require_base("run")
         keys = _as_key(key, self.device)[None]
         final, rec = self._execute("run", keys, self._setup(1), self.fcfg, self.decision)
+        return final, self._outputs(rec, lambda v: v[0])
+
+    def run_segmented(self, key=0, *, segment_steps: int, store=None):
+        """:meth:`run` in resumable segments: the same return value,
+        bitwise. ``store=`` enables boundary snapshots and resume from
+        them; on completion the snapshots are cleared."""
+        self._require_base("run_segmented")
+        keys = _as_key(key, self.device)[None]
+        sig = self._signature("run", self.pcfg, self.fcfg, self.decision, 1)
+        store, skey = self._segment_store(store, sig, (self.pcfg, self.fcfg), 1, keys[0])
+        final, rec = self._execute("run", keys, self._setup(1), self.fcfg, self.decision,
+                                   segment_steps=segment_steps, store=store, skey=skey)
+        if store is not None:
+            store.clear_segments(skey)
         return final, self._outputs(rec, lambda v: v[0])
 
     def ensemble(self, seeds: int, base_key=0):
@@ -244,49 +353,105 @@ class Plan:
                                     self.decision)
         return rec
 
+    def ensemble_segmented(self, seeds: int, base_key=0, *, segment_steps: int, store=None):
+        """:meth:`ensemble` in resumable segments: the same outputs,
+        bitwise."""
+        self._require_base("ensemble_segmented")
+        base = _as_key(base_key, self.device)
+        keys = prng.split(base, seeds, partitionable=self.partitionable)
+        sig = self._signature("ensemble", self.pcfg, self.fcfg, self.decision, seeds)
+        store, skey = self._segment_store(store, sig, (self.pcfg, self.fcfg), seeds, base)
+        _final, rec = self._execute("ensemble", keys, self._setup(seeds), self.fcfg,
+                                    self.decision, segment_steps=segment_steps, store=store,
+                                    skey=skey)
+        if store is not None:
+            store.clear_segments(skey)
+        return rec
+
     def sweep_stacked(self, scenarios: Sequence | None = None, *, seeds: int, base_key=0,
                       store=None, segment_steps: int | None = None):
         """One group of scenarios (one static structure) as one batch of
         ``S * seeds`` rows, scenario-major, in one round loop: every
         scenario reuses the ensemble's keys ``split(key(base), seeds)``.
         Outputs are RecordedOutputs with (S, seeds, steps, ...) fields
-        (with a payload, the pair ``(outputs, payload outputs)``)."""
-        _check_unported(store, segment_steps)
-        scenarios = self._scenarios(scenarios, "sweep_stacked")
-        _final, rec = self.sweep_group(scenarios, seeds=seeds, base_key=base_key)
-        S = len(scenarios)
-        return self._outputs(rec, lambda v: v.reshape((S, seeds) + v.shape[1:]))
+        (with a payload, the pair ``(outputs, payload outputs)``).
 
-    def sweep_group(self, scenarios: Sequence, *, seeds: int, base_key=0):
+        ``store=`` enables disk-backed persistence: a store-warm call
+        returns the stored tensors on the plan's device without making a
+        runner or running a round; the content key covers the plan
+        signature (device type included), the graph, every scenario's
+        config values, ``seeds`` and the base key's words.
+        ``segment_steps=`` runs the rounds in resumable segments (bitwise
+        the straight call); with a store each boundary writes a
+        snapshot, so a killed process resumes a half-finished sweep from
+        disk. The finished result lands under the SAME key as the
+        straight call's, and ``segment_steps`` never enters the key."""
+        scenarios = self._scenarios(scenarios, "sweep_stacked")
+        store = ResultStore.resolve(store)
+        S = len(scenarios)
+        skey = None
+        if store is not None:
+            group = self._group(scenarios, seeds, base_key)
+            skey = store.sweep_key(group["sig"], self.graph, group["configs"], seeds,
+                                   _as_key(base_key, "cpu"))
+            cached = store.get(skey, device=self.device)
+            if cached is not None:
+                return cached
+        _final, rec = self.sweep_group(scenarios, seeds=seeds, base_key=base_key,
+                                       segment_steps=segment_steps, store=store, skey=skey)
+        result = self._outputs(rec, lambda v: v.reshape((S, seeds) + v.shape[1:]))
+        if store is not None:
+            store.put(skey, result, extra_meta={"scenarios": S, "seeds": int(seeds)})
+            if segment_steps is not None:
+                store.clear_segments(skey)
+        return result
+
+    def _group(self, scenarios: Sequence, seeds: int, base_key) -> dict:
+        """The stacked configs, keys and signature of one group."""
+        pcfgs, fcfgs = stack_configs(scenarios)
+        if self.payload is not None:
+            self.payload.validate(pcfgs[0])
+        decision = sim.round_impl_decision(pcfgs[0], fcfgs[0])
+        S = len(scenarios)
+        return dict(pcfgs=pcfgs, fcfgs=fcfgs, decision=decision,
+                    configs=tuple(pcfgs) + tuple(fcfgs),
+                    sig=self._signature("sweep", pcfgs[0], fcfgs[0], decision, S * seeds))
+
+    def sweep_group(self, scenarios: Sequence, *, seeds: int, base_key=0,
+                    segment_steps: int | None = None, store=None, skey: str | None = None):
         """:meth:`sweep_stacked`'s batch with its final state: ``(final
         SimState, RecordedOutputs)``, both with ``S * seeds`` rows,
         scenario-major (with a payload ``((state, carry), (outputs,
-        payload outputs))``)."""
-        pcfgs, fcfgs = stack_configs(scenarios)
+        payload outputs))``); with ``segment_steps``, in segments, their
+        snapshots in ``store`` under ``skey``."""
+        group = self._group(scenarios, seeds, base_key)
         S = len(scenarios)
         keys = prng.split(_as_key(base_key, self.device), seeds,
                           partitionable=self.partitionable)
         setup = sim.make_setup(
-            self.graph, [p for p in pcfgs for _ in range(seeds)],
-            [f for f in fcfgs for _ in range(seeds)], self.steps, self.device,
+            self.graph, [p for p in group["pcfgs"] for _ in range(seeds)],
+            [f for f in group["fcfgs"] for _ in range(seeds)], self.steps, self.device,
             self.partitionable,
         )
-        decision = sim.round_impl_decision(pcfgs[0], fcfgs[0])
-        return self._execute("sweep", keys.repeat(S, 1), setup, fcfgs[0], decision)
+        return self._execute("sweep", keys.repeat(S, 1), setup, group["fcfgs"][0],
+                             group["decision"], segment_steps=segment_steps, store=store,
+                             skey=skey)
 
     def sweep(self, scenarios: Sequence | None = None, *, seeds: int, base_key=0,
               store=None, segment_steps: int | None = None) -> SweepResult:
         """Any scenario list: one :meth:`sweep_stacked` batch per group of
         :meth:`groups`, per-scenario results (leading ``(seeds,)`` axis)
-        in input order."""
-        _check_unported(store, segment_steps)
+        in input order. ``store=`` and ``segment_steps=`` apply to each
+        group's batch (see :meth:`sweep_stacked`)."""
         scenarios = self._scenarios(scenarios, "sweep")
+        store = ResultStore.resolve(store)
         names = tuple(getattr(s, "name", f"scenario{i}") for i, s in enumerate(scenarios))
         results = [None] * len(scenarios)
         payloads = None if self.payload is None else [None] * len(scenarios)
         for _sig, idxs in self.groups(scenarios):
             stacked = self.sweep_stacked([scenarios[i] for i in idxs], seeds=seeds,
-                                         base_key=base_key)
+                                         base_key=base_key, store=store,
+                                         segment_steps=segment_steps)
             for j, i in enumerate(idxs):
                 row = self._outputs(stacked, lambda v, j=j: v[j])
                 if self.payload is None:

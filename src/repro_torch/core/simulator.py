@@ -48,6 +48,7 @@ bitwise those of the payload-free run.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import NamedTuple
 
@@ -500,6 +501,17 @@ def init_payload(keys: torch.Tensor, setup: Setup, payload):
     return payload.init(payload_init_key(keys), partitionable=setup.partitionable)
 
 
+def init_carry(keys: torch.Tensor, setup: Setup, payload=None):
+    """The step-0 carry of every trajectory row of ``keys``: ``(SimState,
+    payload carry | None)``, the one initialisation a straight run and
+    the first segment of a segmented run both start from (the
+    reference's ``_init_carry`` and its ensemble and sweep forms; the
+    port's state has no observation padding, so nothing is stripped at
+    the end as the reference's ``_finalize_segmented`` does)."""
+    state = init_state(keys, setup)
+    return state, (None if payload is None else init_payload(keys, setup, payload))
+
+
 def payload_round(state: SimState, carry, setup: Setup, payload,
                   decision: RoundDecision | None = None):
     """One round with a payload, in the reference's order: the payload
@@ -624,6 +636,8 @@ class RoundRunner:
         self.column = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.graph = None
         self.capture_s = None  # host seconds of the warm-up and capture
+        self.lock = threading.Lock()  # held for each run (api.service runs threads)
+        self.done = None  # CUDA event: the last run's work, which the next one waits for
 
     @property
     def captures(self) -> int:
@@ -668,44 +682,76 @@ class RoundRunner:
         if self.payload is not None:
             self._payload_buffers(pout)
 
-    def run(self, state: SimState, setup: Setup, carry=None):
-        """``steps`` rounds from ``state`` (and the payload's ``carry``)
-        under ``setup``'s values: ``(final SimState, RecordedOutputs)``,
-        as :func:`run_rounds` gives them; with a payload ``((state,
-        carry), (outputs, payload outputs))``."""
+    def run(self, state: SimState, setup: Setup, carry=None, rounds: int | None = None,
+            outputs=None, start: int = 0):
+        """``rounds`` rounds (default ``steps - start``) from ``state`` (and
+        the payload's ``carry``) under ``setup``'s values: ``(final
+        SimState, RecordedOutputs)``, as :func:`run_rounds` gives them;
+        with a payload ``((state, carry), (outputs, payload outputs))``.
+
+        The outputs always span the whole run, (batch, steps, ...): this
+        call fills columns ``[start, start + rounds)``, of ``outputs``
+        where given (what an earlier call of this run returned), else of
+        fresh ones. So a segment of a run is a call from a mid-run
+        state, through the same captured round: a segment captures
+        nothing new, and ``setup.steps`` stays the run's whole budget
+        (it trims the gather estimator's bins). Each call holds the
+        runner's lock, so two threads never share its static buffers;
+        on CUDA the next call's stream waits for this call's work."""
         if (carry is None) != (self.payload is None):
             raise ValueError("a payload runner runs with its carry, and only then")
+        rounds = self.steps - start if rounds is None else int(rounds)
+        if rounds < 1 or start < 0 or start + rounds > self.steps:
+            raise ValueError(f"rounds [{start}, {start + rounds}) outside the run's "
+                             f"{self.steps} steps")
+        with self.lock:
+            return self._run(state, setup, carry, rounds, outputs, start)
+
+    def _run(self, state, setup, carry, rounds, outputs, start):
+        cuda = self.column.is_cuda
+        if cuda and self.done is not None:
+            torch.cuda.current_stream().wait_event(self.done)
         copy_into(_setup_tensors(self.setup), _setup_tensors(setup))
         if self.state is None:
             self.state, self.carry = tree_clone(state), tree_clone(carry)
         else:
             copy_into((self.state, self.carry), (state, carry))
-        cuda = self.column.is_cuda
         if cuda and self.graph is None:
             t0 = time.perf_counter()
             self.graph = Captured(self._round, warmup=self._warmup)
             self.capture_s = time.perf_counter() - t0
         dev = self.column.device
-        outs = empty_recording(self.spec, self.batch, self.steps, self.walks, dev)
-        pouts = None
-        for start in range(0, self.steps, self.chunk):
-            rounds = min(self.chunk, self.steps - start)
+        if outputs is None:
+            outs = empty_recording(self.spec, self.batch, self.steps, self.walks, dev)
+            pouts = None
+        elif self.payload is None:
+            outs, pouts = tuple(outputs), None
+        else:
+            outs, pouts = tuple(outputs[0]), tuple(outputs[1])
+        for c0 in range(start, start + rounds, self.chunk):
+            n = min(self.chunk, start + rounds - c0)
             self.column.zero_()
             if cuda:
-                self.graph.replay(rounds)
+                self.graph.replay(n)
             else:
-                for _ in range(rounds):
+                for _ in range(n):
                     self._round()
             if pouts is None and self.payload is not None:
                 pouts = tuple(torch.empty((b.shape[0], self.steps) + tuple(b.shape[2:]),
                                           dtype=b.dtype, device=dev) for b in self.precorded)
             for o, b in zip(outs + (pouts or ()), self.recorded + (self.precorded or ())):
-                o[:, start:start + rounds].copy_(b[:, :rounds])
+                o[:, c0:c0 + n].copy_(b[:, :n])
         rec = RecordedOutputs(self.spec.fields, outs)
         if self.payload is None:
-            return tree_clone(self.state), rec
-        return ((tree_clone(self.state), tree_clone(self.carry)),
-                (rec, _payload_outputs(self.pout, self.pspec, pouts)))
+            result = tree_clone(self.state), rec
+        else:
+            pstruct = (_payload_outputs(self.pout, self.pspec, pouts) if outputs is None
+                       else outputs[1])
+            result = ((tree_clone(self.state), tree_clone(self.carry)), (rec, pstruct))
+        if cuda:
+            self.done = torch.cuda.Event()
+            self.done.record()
+        return result
 
 
 # ---------------------------------------------------------------------------

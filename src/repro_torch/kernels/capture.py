@@ -120,7 +120,14 @@ class Captured:
     leave the buffers ``fn`` reads as they were, e.g. by working on
     clones. ``kernel_nodes`` is the graph's kernel count and
     ``per_replay`` each wrapper's launches in one replay, both read from
-    the captured graph."""
+    the captured graph.
+
+    The capture runs in CUDA's ``thread_local`` mode: only the capturing
+    thread is barred from calls that are unsafe during a capture, so
+    another thread's CUDA work (a caller of ``api.service``, whose worker
+    thread captures) neither breaks the capture nor fails itself. The
+    default ``global`` mode would fail any such call from any thread
+    ("operation not permitted when stream is capturing")."""
 
     def __init__(self, fn, warmup):
         stream = torch.cuda.Stream()
@@ -128,7 +135,7 @@ class Captured:
         with torch.cuda.stream(stream):
             warmup()
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(self.graph, stream=stream):
+        with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
             fn()
         torch.cuda.current_stream().wait_stream(stream)
         names = kernel_node_names(self.graph.raw_cuda_graph())

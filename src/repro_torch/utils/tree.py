@@ -4,6 +4,9 @@ at fixed addresses (tensors inside NamedTuples, tuples and dicts; a
 ``utils/tree.py`` for what the port needs."""
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 
@@ -74,5 +77,64 @@ def tree_replace(like, leaves):
             vals = [build(v) for v in t]
             return type(t)(*vals) if hasattr(t, "_fields") else tuple(vals)
         return t
+
+    return build(like)
+
+
+def _is_leaf(x) -> bool:
+    return isinstance(x, (torch.Tensor, np.ndarray, np.generic)) or (
+        isinstance(x, (bool, int, float)) and not isinstance(x, str))
+
+
+def _children(tree):
+    """``[(name, child)]`` of a NamedTuple (fields), dataclass instance
+    (fields), tuple or list (indices) or dict (sorted keys); None for
+    anything else."""
+    if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return list(zip(tree._fields, tree))
+    if isinstance(tree, (tuple, list)):
+        return [(str(i), v) for i, v in enumerate(tree)]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [(f.name, getattr(tree, f.name)) for f in dataclasses.fields(tree)]
+    return None
+
+
+def tree_flatten_with_paths(tree, prefix: str = "") -> list:
+    """``[(path, leaf)]`` of ``tree``'s tensors, arrays and numbers in
+    :func:`tree_leaves` order, paths '/'-joined (NamedTuple and dataclass
+    fields by name, tuple and list items by index, dict keys); ``None``
+    and strings hold nothing."""
+    if _is_leaf(tree):
+        return [(prefix, tree)]
+    kids = _children(tree)
+    if kids is None:
+        return []
+    out = []
+    for name, child in kids:
+        out.extend(tree_flatten_with_paths(child, f"{prefix}/{name}" if prefix else name))
+    return out
+
+
+def tree_unflatten_like(like, leaves):
+    """``like``'s structure with its leaves (as :func:`tree_flatten_with_paths`
+    lists them) replaced, in order, by ``leaves``."""
+    it = iter(leaves)
+
+    def build(t):
+        if _is_leaf(t):
+            return next(it)
+        kids = _children(t)
+        if kids is None:
+            return t
+        vals = [build(c) for _, c in kids]
+        if isinstance(t, dict):
+            return dict(zip([k for k in sorted(t)], vals))
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*vals)
+        if isinstance(t, (tuple, list)):
+            return type(t)(vals)
+        return dataclasses.replace(t, **{name: v for (name, _), v in zip(kids, vals)})
 
     return build(like)

@@ -260,7 +260,7 @@ def test_failure_models():
             _eq(np.asarray(want).view(np.int32), got[b].view(torch.int32), "uniforms")
 
 
-def test_failure_config_guards_and_padding():
+def test_failure_config_guards_and_padding(tmp_path):
     padded = tflr.pad_bursts([tflr.FailureConfig(burst_times=(5,), burst_sizes=(2,)),
                               tflr.FailureConfig(burst_times=(1, 2, 3), burst_sizes=(1, 1, 1))])
     assert padded[0].burst_times == (5, -1, -1) and padded[0].burst_sizes == (2, 0, 0)
@@ -270,7 +270,7 @@ def test_failure_config_guards_and_padding():
     from repro_torch.graphs import make_graph
 
     # the zoo's attacks are ported (padded like every schedule): a Plan
-    # takes each; durable sweeps (store=) still raise
+    # takes each; durable sweeps (store=) are ported too
     for zoo in (dict(pacman_mobile=True), dict(pacman_nodes=(3,)),
                 dict(edge_cut_times=(5,), edge_cut_thresholds=(3,))):
         Experiment(graph=make_graph("ring", 8), protocol=tprt.ProtocolConfig(),
@@ -279,7 +279,7 @@ def test_failure_config_guards_and_padding():
                               tflr.FailureConfig(edge_cut_times=(5,), edge_cut_thresholds=(3,))])
     assert padded[1].pacman_nodes == (-1, -1) and padded[0].edge_cut_times == (-1,)
     assert padded[0].edge_cut_thresholds == (-1,) and padded[2].pacman_nodes == (-1, -1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Experiment(graph=make_graph("ring", 8), protocol=tprt.ProtocolConfig(), steps=5,
-                   device="cpu").sweep([(tprt.ProtocolConfig(), tflr.FailureConfig())],
-                                       seeds=1, store="results")
+    durable = Experiment(graph=make_graph("ring", 8), protocol=tprt.ProtocolConfig(), steps=5,
+                         device="cpu").sweep([(tprt.ProtocolConfig(), tflr.FailureConfig())],
+                                             seeds=1, store=tmp_path / "results")
+    assert durable["scenario0"].z.shape == (1, 5) and (tmp_path / "results").is_dir()

@@ -601,3 +601,150 @@ def test_cuda_payload_runs_are_bitwise_run_to_run(cuda):
     for other in runs[1:]:
         _equal_trees(other[0], runs[0][0], "final state and replicas")
         _equal_trees(other[1][1], runs[0][1][1], "payload outputs")
+
+
+# ---------------------------------------------------------------------------
+# durable execution and the service on the card
+# ---------------------------------------------------------------------------
+
+
+def _durable_experiment(cuda, steps=37, **kw):
+    from repro_torch.api import Experiment
+
+    pcfg, fcfg, _ = _capture_cases()["fused"]
+    return Experiment(graph=make_graph("erdos_renyi", 24, seed=0), protocol=pcfg, failures=fcfg,
+                      steps=steps, outputs="full", device=cuda, **kw)
+
+
+def test_cuda_segmented_ensemble_is_the_straight_one_without_a_capture(cuda):
+    """A segmented cuda ensemble is bitwise the straight one, replays the
+    straight run's captured round (no new slot, no new graph) and
+    launches whole_round once per round it replays: no warm-up round."""
+    from repro_torch.api import cache_stats
+    from repro_torch.api import plan as plan_mod
+
+    plan_mod.clear_cache()
+    try:
+        plan = _durable_experiment(cuda).plan()
+        want = plan.ensemble(3, base_key=4)
+        st = cache_stats()
+        assert st["graphs_captured"] == 1
+        before = whole_round.launches
+        got = plan.ensemble_segmented(3, base_key=4, segment_steps=10)
+        assert whole_round.launches - before == 37
+        assert cache_stats() == st
+        assert all(t.is_cuda for t in got)
+        _equal_trees(got, want, "segmented vs straight on cuda")
+    finally:
+        plan_mod.clear_cache()
+
+
+def test_cuda_store_roundtrip_returns_cuda_tensors(cuda, tmp_path):
+    """A store-warm sweep on cuda returns cuda tensors bitwise the cold
+    run's, running no round; the CPU's key is another key."""
+    from repro_torch.api import ResultStore
+    from repro_torch.sweep import Scenario
+
+    exp = _durable_experiment(cuda)
+    scen = [Scenario("a", exp.protocol, exp.failures)]
+    store = ResultStore(tmp_path / "store")
+    cold = exp.plan().sweep_stacked(scen, seeds=2, store=store)
+    before = whole_round.launches
+    warm = exp.plan().sweep_stacked(scen, seeds=2, store=store)
+    assert store.hits == 1 and whole_round.launches == before
+    assert all(t.is_cuda for t in warm)
+    _equal_trees(warm, cold, "store round trip on cuda")
+    cpu = _durable_experiment("cpu").plan()
+    cpu_group = cpu._group(scen, 2, 0)
+    cuda_group = exp.plan()._group(scen, 2, 0)
+    assert store.sweep_key(cpu_group["sig"], exp.graph, cpu_group["configs"], 2,
+                           torch.tensor([0, 0])) != \
+        store.sweep_key(cuda_group["sig"], exp.graph, cuda_group["configs"], 2,
+                        torch.tensor([0, 0]))
+
+
+def test_cuda_service_worker_captures_while_the_caller_launches(cuda):
+    """The service's worker thread captures a new slot while the calling
+    thread keeps launching CUDA work and synchronising on it (a matmul,
+    a round kernel, ``.item()``): under CUDA's ``thread_local`` capture
+    mode neither breaks the other, and the rows are bitwise a private
+    sweep."""
+    import dataclasses
+
+    from repro_torch.api import ExperimentService
+    from repro_torch.api import plan as plan_mod
+    from repro_torch.core import simulator as sim
+    from repro_torch.sweep import Scenario
+
+    capturing = {"now": False, "seen": 0}
+    real = sim.Captured
+
+    class Watched(real):
+        def __init__(self, *a, **kw):
+            capturing["now"] = True
+            try:
+                super().__init__(*a, **kw)
+            finally:
+                capturing["now"] = False
+
+    plan_mod.clear_cache()
+    sim.Captured = Watched
+    try:
+        exp = _durable_experiment(cuda, steps=29)
+        scen = [Scenario(f"e{e}", dataclasses.replace(exp.protocol, eps=e), exp.failures)
+                for e in (1.8, 2.4)]
+        svc = ExperimentService(exp, store=None, autostart=True, linger=0.0)
+        fut = svc.submit(scen, seeds=3)
+        x = _observation(np.random.default_rng(1), 2, 19, 16, 64, 16, 70, cuda)
+        a = torch.randn(512, 512, device=cuda)
+        while not fut.done():
+            b = a @ a
+            theta_sums(x[0], x[1], x[2], x[8])
+            assert torch.isfinite(b.sum()).item()
+            capturing["seen"] += capturing["now"]
+        got = fut.result(timeout=120)
+        svc.close()
+        assert capturing["seen"] > 0, "no caller work ran during the worker's capture"
+        want = exp.plan().sweep(scen, seeds=3)
+        for name in ("e1.8", "e2.4"):
+            _equal_trees(got[name], want[name], f"service row {name}")
+    finally:
+        sim.Captured = real
+        plan_mod.clear_cache()
+
+
+def test_cuda_two_threads_share_a_cached_runner(cuda):
+    """Two threads run one cached runner at once with different keys: its
+    lock serialises the runs, so each result is bitwise its own run's."""
+    import threading
+
+    from repro_torch.api import cache_stats
+    from repro_torch.api import plan as plan_mod
+
+    plan_mod.clear_cache()
+    try:
+        plan = _durable_experiment(cuda).plan()
+        want = {k: plan.ensemble(3, base_key=k) for k in (1, 2)}
+        assert cache_stats()["entries"] == 1
+        got, errors = {}, []
+        start = threading.Barrier(2)
+
+        def worker(k):
+            try:
+                start.wait()
+                got[k] = [plan.ensemble(3, base_key=k) for _ in range(3)]
+            except BaseException as exc:  # noqa: BLE001 - recorded for the assert
+                errors.append(exc)
+
+        threads = [threading.Thread(target=worker, args=(k,)) for k in (1, 2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert not errors, errors
+        for k in (1, 2):
+            for i, rec in enumerate(got[k]):
+                _equal_trees(rec, want[k], f"thread {k} run {i}")
+        assert cache_stats()["entries"] == 1
+    finally:
+        plan_mod.clear_cache()

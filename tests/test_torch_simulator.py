@@ -192,7 +192,7 @@ def test_state_carried_across_from_jax():
     assert_same((got_state, got), (want_state, tail), "carried")
 
 
-def test_config_conversion_and_guards():
+def test_config_conversion_and_guards(tmp_path):
     p = convert.protocol_config(dict(algorithm="decafork+", z0=np.int32(6), eps=np.float32(3.0)))
     assert p.z0 == 6 and p.algorithm == "decafork+"
     f = convert.failure_config(dict(burst_times=np.array([5, 9]), burst_sizes=(1, 2),
@@ -200,8 +200,7 @@ def test_config_conversion_and_guards():
     assert f.burst_times == (5, 9) and f.p_fail == 0.25
     g = make_graph("ring", 8)
     # the zoo's variants and attacks pass the Plan's checks, and so does
-    # the walk payload (its plan builds and runs); durable sweeps still
-    # raise
+    # the walk payload (its plan builds and runs); durable sweeps run too
     jump = Experiment(graph=g,
                       protocol=ProtocolConfig(walk_variant="jump", estimator_impl="auto"),
                       failures=FailureConfig(pacman_mobile=True, pacman_nodes=(3,)),
@@ -221,9 +220,9 @@ def test_config_conversion_and_guards():
                       payload=payload).plan()
     outs, learn = plan.ensemble(2)
     assert outs.fork_parent.shape == (2, 4, 16) and learn.loss.shape == (2, 4, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Experiment(graph=g, protocol=ProtocolConfig(), steps=5, device="cpu").sweep(
-            [(ProtocolConfig(), FailureConfig())], seeds=1, store="results")
+    stored = Experiment(graph=g, protocol=ProtocolConfig(), steps=5, device="cpu").sweep(
+        [(ProtocolConfig(), FailureConfig())], seeds=1, store=str(tmp_path / "results"))
+    assert stored["scenario0"].z.shape == (1, 5) and (tmp_path / "results").is_dir()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Experiment(graph=g, protocol=ProtocolConfig(), steps=5)

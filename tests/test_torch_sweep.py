@@ -385,15 +385,18 @@ def test_stacking_and_results():
         res.payload(0)
 
 
-def test_guards_name_their_roadmap_items():
+def test_guards_name_their_roadmap_items(tmp_path):
     g = _graph()
     p = ProtocolConfig(**BASE_P)
     scen = [Scenario("a", p, FailureConfig()), Scenario("a", p, FailureConfig())]
     exp = Experiment(graph=g, scenarios=scen[:1], steps=5, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        exp.sweep(seeds=1, store="somewhere")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        exp.plan().sweep_stacked(seeds=1, segment_steps=2)
+    # durable execution (item 9) is ported: a stored sweep and a segmented
+    # one are bitwise the straight sweep
+    straight = exp.plan().sweep_stacked(seeds=1)
+    for got in (exp.sweep(seeds=1, store=str(tmp_path / "somewhere"))["a"],
+                exp.plan().sweep_stacked(seeds=1, segment_steps=2).map(lambda v: v[0])):
+        for f in got._fields:
+            assert torch.equal(getattr(got, f), getattr(straight, f)[0]), f
     with pytest.raises(NotImplementedError, match="item 11"):
         Experiment(graph=g, protocol=p, steps=5, device="cpu", placement="sharded")
     # the walk payload (item 8) is ported: a payload sweep builds and runs
