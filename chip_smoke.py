@@ -201,7 +201,22 @@ Phases, each printed on its own line:
    Phase 10 (b)'s smoke-config payload run (2 seeds, 60 rounds) in
    segments of 20 with a SimulatedKill at the second boundary, then
    resumed: outputs, losses and final replicas bitwise the straight
-   captured run.
+   captured run;
+12. sharded: the node-sharded protocol step
+   (``repro_torch.core.distributed``, eager; no kernel of
+   ``repro_torch.kernels`` on its path, and their counters must not move).
+   (a) The reference's production protocol step (``launch/dryrun.py::
+   build_protocol``: DecAFork+ Z0 16, eps 4.0 / 11.0, W 64, B 512, max
+   degree 16) at its n 131,072 on a Cayley graph of Z_n of degree 16
+   (offsets drawn from the seed: the port's generators fill a dense n x n
+   adjacency), over NCCL at world size 1 (a ``FileStore``), 2,000 rounds:
+   ms per round over the last 1,950 (host clock ending in a synchronize),
+   Z's range, peak device memory, the node tables' bytes, and 10 rounds
+   under torch.profiler (kernels per round, busy share); the state after
+   50 rounds must be bitwise the same step on the CPU. (b) Two spawned
+   ranks over gloo on CUDA tensors (NCCL refuses two ranks on one
+   device), a 16-regular Cayley graph of n 4,096, random node and link
+   masks, 300 rounds: bitwise world size 1 on the same inputs.
 
 Before the last line it prints the card's name and power limit, then one
 JSON object with every kernel's launches, error and times; the last line
@@ -304,6 +319,16 @@ FIG8_FULL = dict(steps=900, seeds=4)  # benchmarks/fig8_learning.py under BENCH_
 # the training run's 4 seeds, Fig. 8's groups (3 scenarios x 4 seeds)
 PAYLOAD_SHAPES = ((4, 64, 8, 16, 512), (12, 48, 6, 12, 256))
 CPU_TIMEOUT_S = 600  # the longest phases 8 and 9 wait for that process's result
+# phase 12: the reference's production protocol step (launch/dryrun.py::
+# build_protocol: DecAFork+ Z0 16, eps 4.0 / 11.0, W 64, B 512, max degree
+# 16, n 131,072) on a Cayley graph of that n, eager, its first
+# ``cpu_rounds`` held bitwise to the CPU; then two ranks over gloo on the
+# card against world size 1 on a 16-regular Cayley graph of n 4,096 with
+# random masks
+SHARDED = dict(n=131072, degree=16, z0=16, max_walks=64, eps=4.0, eps2=11.0, rt_bins=512,
+               rounds=2000, cpu_rounds=50)
+SHARDED_RANKS = dict(n=4096, degree=16, rounds=300, world=2)
+SHARDED_PROFILE = 10  # eager rounds of (a) under torch.profiler
 
 
 def log(phase: str, **kv) -> None:
@@ -2648,6 +2673,182 @@ def durable_phase(graph, steps, phase3):
     return dict(resume=resume, service=service, payload=payload), n_a + n_b + n_c
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the node-sharded protocol step
+# ---------------------------------------------------------------------------
+
+
+def cayley_graph(n, degree, seed):
+    """A ``degree``-regular Cayley graph of Z_n: node i joins i +- o_k for
+    ``degree / 2`` distinct offsets o_k in [1, n/2), drawn from ``seed``
+    until they and n are coprime (so it is connected). Built in O(n D):
+    the port's generators fill a dense n x n adjacency."""
+    import numpy as np
+
+    from repro_torch.graphs.generators import Graph
+
+    rng = np.random.default_rng(seed)
+    while True:
+        offs = rng.choice(np.arange(1, n // 2), degree // 2, replace=False)
+        if np.gcd.reduce(np.append(offs, n)) == 1:
+            break
+    i = np.arange(n)[:, None]
+    nbrs = np.concatenate([(i + offs) % n, (i - offs) % n], axis=1).astype(np.int32)
+    return Graph(n=n, neighbors=nbrs, degrees=np.full(n, degree, np.int32), family="cayley")
+
+
+def random_masks(graph, rng):
+    """About 15 % of the nodes and 20 % of the links down (links
+    symmetric), as tests/test_distributed.py draws them."""
+    import numpy as np
+    import torch
+
+    from repro_torch.graphs.state import mirror_indices
+
+    nbrs = graph.neighbors
+    edge = rng.random(nbrs.shape) > 0.2
+    i, k = np.nonzero(nbrs > np.arange(graph.n)[:, None])
+    edge[nbrs[i, k], mirror_indices(graph)[i, k]] = edge[i, k]
+    return torch.as_tensor(rng.random(graph.n) > 0.15), torch.as_tensor(edge)
+
+
+def same_state(got, want, label):
+    import torch
+
+    for f, a, b in zip(want._fields, got, want):
+        if not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError(f"{label}: {f} differs")
+
+
+def sharded_phase(seed=0):
+    """Phase 12: the node-sharded step (``repro_torch.core.distributed``).
+    (a) NCCL at world size 1 (a ``FileStore`` in a temp dir) on the
+    reference's production setting (``SHARDED``): ``rounds`` eager rounds,
+    ms per round over all but the first ``cpu_rounds`` (host clock ending
+    in a synchronize), Z's range, the peak device memory above what
+    earlier phases keep, and the node tables' bytes, then
+    ``SHARDED_PROFILE`` rounds under torch.profiler (kernels per round,
+    busy share, the kernels with the most device time); the state after
+    ``cpu_rounds`` rounds must be bitwise the same step on the CPU
+    (``mesh=None``). (b) ``SHARDED_RANKS``: two spawned ranks over gloo on
+    CUDA tensors (NCCL refuses two ranks on one device), started beside
+    this process's world-size-1 run of the same inputs and bitwise it.
+    The step runs no kernel of ``repro_torch.kernels``: their counters
+    must not move."""
+    import concurrent.futures
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import (ShardedGraph, ShardedProtocolState,
+                                              init_sharded_state, make_sharded_step,
+                                              run_sharded, shard_state)
+    from repro_torch.core.protocol import ProtocolConfig
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.mesh import data_axes, make_local_mesh
+    from repro_torch.launch.sharded import spawn_run
+    from repro_torch.utils import prng
+
+    S, R = SHARDED, SHARDED_RANKS
+    pcfg = ProtocolConfig(algorithm="decafork+", z0=S["z0"], max_walks=S["max_walks"],
+                          eps=S["eps"], eps2=S["eps2"], rt_bins=S["rt_bins"])
+    n = S["n"]
+    g = cayley_graph(n, S["degree"], seed)
+    graph_cpu = ShardedGraph(torch.as_tensor(g.neighbors), torch.as_tensor(g.degrees),
+                             torch.ones(n, dtype=torch.bool),
+                             torch.ones(g.neighbors.shape, dtype=torch.bool))
+    state_cpu = init_sharded_state(n, pcfg, prng.key(seed))
+    before = {k.__name__: k.launches for k in KERNELS}
+    torch.cuda.set_device(0)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            mesh = make_local_mesh(device_type="cuda")
+            axes = data_axes(mesh)
+            step = make_sharded_step(mesh, axes, n, pcfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()  # what earlier phases keep
+            state, graph = shard_state(state_cpu, graph_cpu, mesh, axes, "cuda")
+            head, w = S["cpu_rounds"], S["rounds"] - S["cpu_rounds"]
+            state, z_head = run_sharded(step, state, graph, head)
+            snap = ShardedProtocolState(*(x.to("cpu", copy=True) for x in state))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, z_tail = run_sharded(step, state, graph, w)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            z = torch.cat([z_head, z_tail]).cpu().numpy()
+            peak = torch.cuda.max_memory_allocated() - base
+            tables = {f: getattr(state, f).numel() * getattr(state, f).element_size()
+                      for f in ("last_seen", "hist", "total")}
+            # a short profiled window: kernels per round and the busy share
+            seen, events, wall_us = device_launches(
+                lambda: run_sharded(step, state, graph, SHARDED_PROFILE))
+            if any(seen.values()):
+                raise AssertionError(f"phase 12: the device ran the repo's kernels: {seen}")
+            busy = _busy(events, wall_us, SHARDED_PROFILE)
+            top = top_kernels(events, SHARDED_PROFILE, k=4)
+            del state, graph
+            t1 = time.perf_counter()
+            cpu, z_cpu = run_sharded(make_sharded_step(None, ("data",), n, pcfg), state_cpu,
+                                     graph_cpu, head)
+            cpu_s = time.perf_counter() - t1
+            same_state(snap, cpu, f"phase 12 (a): round {head}, cuda vs cpu")
+            if not np.array_equal(z[:head], z_cpu.numpy()):
+                raise AssertionError("phase 12 (a): Z differs between cuda and the CPU")
+            if not 1 <= z.min() <= z.max() <= S["max_walks"]:
+                raise AssertionError(f"phase 12 (a): Z left [1, W]: {z.min()}..{z.max()}")
+            res["full_width"] = dict(
+                n=n, degree=S["degree"], max_walks=S["max_walks"], rt_bins=S["rt_bins"],
+                rounds=S["rounds"], timed_rounds=w, ms_per_round=wall * 1e3 / w,
+                z_min=int(z.min()), z_max=int(z.max()), z_final=int(z[-1]),
+                peak_memory_mb=peak / 1e6, table_mb={k: v / 1e6 for k, v in tables.items()},
+                profiled_rounds=SHARDED_PROFILE, kernels_per_round=busy["kernels_per_step"],
+                kernel_ms_per_round=busy["kernel_ms_per_step"], busy_share=busy["busy_share"],
+                top_kernels_ms_per_round=top,
+                cpu_rounds=head, cpu_s=cpu_s, cuda_vs_cpu="bitwise", backend="nccl", world=1)
+            log("sharded", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                              for k, v in res["full_width"].items()})
+
+            # (b) two ranks over gloo on the card against world size 1
+            t2 = time.perf_counter()
+            g = cayley_graph(R["n"], R["degree"], seed + 1)
+            node_up, edge_up = random_masks(g, np.random.default_rng(seed))
+            graph_b = ShardedGraph(torch.as_tensor(g.neighbors), torch.as_tensor(g.degrees),
+                                   node_up, edge_up)
+            state_b = init_sharded_state(R["n"], pcfg, prng.key(seed + 1))
+            # the two ranks start (imports, CUDA, gloo) while this process
+            # runs world size 1: their ms per round is taken beside it
+            with concurrent.futures.ThreadPoolExecutor(1) as pool:
+                ranks = pool.submit(spawn_run, state_b, graph_b, pcfg, R["rounds"],
+                                    world=R["world"], device="cuda", backend="gloo")
+                one_state, one_graph = shard_state(state_b, graph_b, mesh, axes, "cuda")
+                one, z_one = run_sharded(make_sharded_step(mesh, axes, R["n"], pcfg),
+                                         one_state, one_graph, R["rounds"])
+                two = ranks.result()
+            same_state(two["state"], one, "phase 12 (b): two gloo ranks vs world size 1")
+            if not torch.equal(two["z"], z_one.cpu()):
+                raise AssertionError("phase 12 (b): Z differs between world sizes 2 and 1")
+            res["ranks"] = dict(n=R["n"], degree=R["degree"], rounds=R["rounds"],
+                                world=R["world"], backend="gloo", device="cuda",
+                                ms_per_round=two["seconds"] * 1e3 / R["rounds"],
+                                z_min=int(z_one.min()), z_max=int(z_one.max()),
+                                vs_world_1="bitwise", wall_s=time.perf_counter() - t2)
+            log("sharded", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                              for k, v in res["ranks"].items()})
+        finally:
+            dist.destroy_process_group()
+    moved = {k.__name__: k.launches - before[k.__name__] for k in KERNELS}
+    if any(moved.values()):
+        raise AssertionError(f"phase 12 launched kernels: {moved}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=MAIN_STEPS,
@@ -2778,6 +2979,8 @@ def main() -> int:
     main_res["decafork"].pop("outs")
     counts["whole_round"] += counts_11
     lap("11 durable")
+    sharded = sharded_phase()
+    lap("12 sharded")
     log("time", **{k.replace(" ", "_"): f"{v:.1f}" for k, v in phase_s.items()})
 
     for r in rows:
@@ -2791,7 +2994,8 @@ def main() -> int:
                   build_s_by_source=build, sass=sass, kernels=rows,
                   main=main_res, profile=profile, parity=parity, unfused=unfused,
                   captured_vs_eager=captured, serve=serve, sweep=sweep, zoo=zoo,
-                  figures=figures, payload=payload, durable=durable, phase_s=phase_s)
+                  figures=figures, payload=payload, durable=durable, sharded=sharded,
+                  phase_s=phase_s)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(detail, fh, indent=1)

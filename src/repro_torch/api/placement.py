@@ -2,9 +2,11 @@
 ``api/placement.py``, for one device).
 
 ``"auto"`` and ``"local"`` keep every row on the Experiment's device.
-``"sharded"`` (rows spread over several devices) raises: the
-node-sharded, multi-device step is not ported yet (ROADMAP.md queue 1,
-item 11).
+``"sharded"`` spreads the rows over the visible devices, as the
+reference's policy does: on one device (one card, or the CPU) they stay
+where they are, exactly as ``"local"``. Rows over several cards are not
+ported yet (ROADMAP.md queue 1, item 17) and raise. The node-sharded
+step itself is ``repro_torch.core.distributed``.
 """
 from __future__ import annotations
 
@@ -47,10 +49,11 @@ class Placement:
 
     def place(self, device: torch.device) -> torch.device:
         """The device a sweep's rows live on."""
-        if self.policy == "sharded":
+        if (self.policy == "sharded" and torch.device(device).type == "cuda"
+                and torch.cuda.device_count() > 1):
             raise NotImplementedError(
-                "placement='sharded' (rows over several devices) is not "
-                "ported yet (ROADMAP.md queue 1, item 11: node-sharded step)"
+                "placement='sharded' over several cards is not ported yet "
+                "(ROADMAP.md queue 1, item 17: sweep rows over several cards)"
             )
         return device
 

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.core import estimator as est
 from repro_torch.core import walkers as wlk
+from repro_torch.core.distributed import ShardedGraph, ShardedProtocolState
 from repro_torch.core.failures import FailureConfig
 from repro_torch.core.protocol import ProtocolConfig
 from repro_torch.core.simulator import SimState
@@ -128,6 +129,40 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
         bits = torch.from_numpy(np.array(a.view(np.int16), copy=True))
         return bits.view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+# the node-sharded step's twelve arguments, in the reference's order, and
+# their dtypes in the port
+SHARDED_STEP_ARGS = {
+    "t": torch.int32, "pos": torch.int32, "active": torch.bool, "track": torch.int32,
+    "last_seen": torch.int32, "hist": torch.float32, "total": torch.float32,
+    "key": torch.int64, "neighbors": torch.int32, "degrees": torch.int32,
+    "node_up": torch.bool, "edge_up": torch.bool,
+}
+
+
+def sharded_step_from_arrays(args, device) -> tuple[ShardedProtocolState, ShardedGraph]:
+    """The port's step state and graph from the reference sharded step's
+    twelve arguments as numpy arrays, in its order (the typed key as its
+    ``key_data`` uint32 pair)."""
+    if len(args) != len(SHARDED_STEP_ARGS):
+        raise ValueError(f"the sharded step takes {len(SHARDED_STEP_ARGS)} arguments; "
+                         f"got {len(args)}")
+    out = []
+    for (name, dtype), a in zip(SHARDED_STEP_ARGS.items(), args):
+        a = np.asarray(a)
+        if name == "key":
+            a = a.astype(np.uint32).astype(np.int64)
+        out.append(_tensor(a, device).to(dtype))
+    return ShardedProtocolState(*out[:8]), ShardedGraph(*out[8:])
+
+
+def sharded_step_to_arrays(state: ShardedProtocolState, graph: ShardedGraph) -> tuple:
+    """The inverse: the twelve arguments as numpy arrays in the
+    reference's dtypes (the key as its uint32 word pair)."""
+    out = [x.cpu().numpy() for x in (*state, *graph)]
+    out[7] = out[7].astype(np.uint32)
+    return tuple(out)
 
 
 def model_params_from_arrays(arrays: Mapping[str, np.ndarray], cfg: ModelConfig, device) -> ModelParams:

@@ -85,6 +85,32 @@ def scatter_max_last_seen(
     return last_seen
 
 
+def survival_cumulative(hist: torch.Tensor) -> torch.Tensor:
+    """(..., R, B+1) float32 table C with C[i, r] = #samples <= r
+    (C[i, 0] = 0) from (..., R, B) histogram rows."""
+    csum = torch.cumsum(hist.float(), dim=-1)
+    return torch.cat([torch.zeros_like(csum[..., :1]), csum], dim=-1)
+
+
+def survival_eval(
+    cum: torch.Tensor,  # (R, B+1) from survival_cumulative
+    total: torch.Tensor,  # (R,)
+    nodes: torch.Tensor,  # (...) row of each entry
+    r: torch.Tensor,  # (...) elapsed times
+) -> torch.Tensor:
+    """Empirical S_i(r) = 1 - F_hat(r), elementwise over broadcast args.
+
+    Conventions: S(r <= 0) = 1; rows with no samples yet return 1 (a
+    walk is presumed alive absent any evidence)."""
+    nodes, r = torch.broadcast_tensors(nodes.long(), r)
+    bins = cum.shape[-1] - 1
+    tot = total[nodes].float()
+    seen = cum[nodes, torch.clamp(r, 0, bins).long()]
+    s = 1.0 - seen / torch.clamp(tot, min=1.0)
+    s = torch.where(tot > 0, s, torch.ones_like(s))
+    return torch.where(r <= 0, torch.ones_like(s), s)
+
+
 def gather_rows(table: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """``table[b, pos[b, w]]`` for a (batch, n, ...) table -> (batch, W, ...)."""
     idx = pos.long().view(pos.shape + (1,) * (table.dim() - 2))

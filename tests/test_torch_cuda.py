@@ -748,3 +748,58 @@ def test_cuda_two_threads_share_a_cached_runner(cuda):
         assert cache_stats()["entries"] == 1
     finally:
         plan_mod.clear_cache()
+
+
+def _sharded_case(n, degree, seed, rounds):
+    """A regular graph's starting step state with random topology masks
+    (about 15 % of nodes and 20 % of links down, links symmetric), and the
+    one-shard run of ``rounds`` rounds on the CPU (DecAFork+, decisions
+    from round 50)."""
+    from repro_torch.core.distributed import (ShardedGraph, init_sharded_state,
+                                              make_sharded_step, run_sharded)
+    from repro_torch.core.protocol import ProtocolConfig
+    from repro_torch.graphs.state import mirror_indices
+    from repro_torch.utils import prng
+
+    g = make_graph("regular", n, seed=seed, degree=degree)
+    rng = np.random.default_rng(seed)
+    edge = rng.random(g.neighbors.shape) > 0.2
+    i, k = np.nonzero(g.neighbors > np.arange(n)[:, None])
+    edge[g.neighbors[i, k], mirror_indices(g)[i, k]] = edge[i, k]
+    graph = ShardedGraph(torch.as_tensor(g.neighbors), torch.as_tensor(g.degrees),
+                         torch.as_tensor(rng.random(n) > 0.15), torch.as_tensor(edge))
+    pcfg = ProtocolConfig(algorithm="decafork+", z0=16, max_walks=64, eps=4.0, eps2=11.0,
+                          rt_bins=512, protocol_start=50)
+    state = init_sharded_state(n, pcfg, prng.key(seed))
+    cpu, z = run_sharded(make_sharded_step(None, ("data",), n, pcfg),
+                         type(state)(*(x.clone() for x in state)), graph, rounds)
+    return state, graph, pcfg, cpu, z
+
+
+def _same_state(got, want_state, want_z):
+    assert torch.equal(got["z"], want_z)
+    for f in want_state._fields:
+        assert torch.equal(getattr(got["state"], f), getattr(want_state, f)), f
+
+
+def test_cuda_sharded_step_nccl_world_1_is_the_cpu_step(cuda):
+    """The node-sharded step over NCCL at world size 1 on the card: 200
+    rounds bitwise the one-shard step on the CPU (integers, and the
+    float32 counts of ``hist`` / ``total``)."""
+    from repro_torch.launch.sharded import spawn_run
+
+    state, graph, pcfg, cpu, z = _sharded_case(1024, 8, 3, 200)
+    got = spawn_run(state, graph, pcfg, 200, world=1, device="cuda", backend="nccl")
+    _same_state(got, cpu, z)
+    assert z.min() != z.max()  # decisions happened
+
+
+def test_cuda_sharded_step_gloo_world_2_is_world_1(cuda):
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    device) with CUDA tensors: bitwise the NCCL world-size-1 run."""
+    from repro_torch.launch.sharded import spawn_run
+
+    state, graph, pcfg, _, _ = _sharded_case(1024, 8, 4, 200)
+    one = spawn_run(state, graph, pcfg, 200, world=1, device="cuda", backend="nccl")
+    two = spawn_run(state, graph, pcfg, 200, world=2, device="cuda", backend="gloo")
+    _same_state(two, one["state"], one["z"])

@@ -57,6 +57,8 @@ def test_port_imports_without_jax():
         "import repro_torch.core.theory, repro_torch.core.irwin_hall, repro_torch.api.registry\n"
         "import repro_torch.figures.run, repro_torch.figures.common\n"
         "import repro_torch.checkpoint, repro_torch.utils.faults, repro_torch.api.store\n"
+        "import repro_torch.core.distributed, repro_torch.launch.mesh, repro_torch.launch.sharded\n"
+        "from repro_torch.core import make_sharded_step, ShardedProtocolState\n"
         "from repro_torch.api import ExperimentService, ResultStore, SubmissionFuture\n"
         "from repro_torch.api import Experiment, registry; assert 'zoo' in registry.names()\n"
         "from repro_torch.api import cache_stats; from repro_torch.api.plan import executable\n"

@@ -397,8 +397,13 @@ def test_guards_name_their_roadmap_items(tmp_path):
                 exp.plan().sweep_stacked(seeds=1, segment_steps=2).map(lambda v: v[0])):
         for f in got._fields:
             assert torch.equal(getattr(got, f), getattr(straight, f)[0]), f
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Experiment(graph=g, protocol=p, steps=5, device="cpu", placement="sharded")
+    # the node-sharded step (item 11) is ported: on one device "sharded"
+    # keeps the rows where "local" does, bitwise (tests/test_sweep.py's
+    # test_placement_policies_agree_on_single_device)
+    runs = {pl: Experiment(graph=g, protocol=p, steps=60, device="cpu", placement=pl).ensemble(2)
+            for pl in ("sharded", "local")}
+    for f in runs["local"]._fields:
+        assert torch.equal(getattr(runs["sharded"], f), getattr(runs["local"], f)), f
     # the walk payload (item 8) is ported: a payload sweep builds and runs
     from repro_torch.data import make_markov_task
     from repro_torch.models.config import ModelConfig
