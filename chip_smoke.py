@@ -8,7 +8,7 @@
 
 Every round of phases 3-5 and 7-11 replays a captured CUDA graph (the
 Plan's executable cache, ``repro_torch.api.plan``), and every decode
-step of phase 6 too (``launch.serve.DecodeGraph``); each captured run's
+step of phases 6 and 13 too (``launch.serve.DecodeGraph``); each captured run's
 capture is timed apart from its replays, and short eager windows of the
 same runs are timed beside them and held to them bitwise.
 
@@ -30,11 +30,15 @@ Phases, each printed on its own line:
    S 512, H 32, KV 4, D 128, bf16, tolerance 3e-2; the same batch and S
    at D 64 and D 256), paper-rwsgd's (S 128, H 8, KV 4, D 32, f32, 2e-4),
    yi-6b's float32 gate's (its prefill's shape in f32, 2e-4) and a
-   windowed shape (window 96, S 256, bf16); ssd_intra_chunk at
+   windowed shape (window 96, S 256, bf16), and phase 13's prefills in
+   bf16 and in f32: hymba-1.5b (H 25, KV 5, D 64), dbrx-132b (H 48, KV 8,
+   D 128), musicgen-large (H 32, KV 32, D 64) and qwen2-vl-2b (S 1,536:
+   1,024 vision + 512 text; H 12, KV 2, D 128); ssd_intra_chunk at
    mamba2-1.3b's (batch 4, 2 chunks of 256, H 64, P 64, N 128) with bf16
    B / C (the served dtype, the row; tensor cores; 3e-4) and with f32 B /
    C (the float32 gate's; exact float32 on the CUDA cores, which must be
-   bitwise its plain version).
+   bitwise its plain version), and at hymba-1.5b's (H 50, N 16) with both
+   (3e-4).
    Median times by CUDA events: each kernel's from Python (``ms``: eager,
    the wrapper's host cost included, as since the first slice) and on the
    device alone (``device_ms``: the same calls replayed as a CUDA graph),
@@ -117,7 +121,7 @@ Phases, each printed on its own line:
    Z0 10, eps 3.0 / 7.57, W 64, B 1024, decisions from step 1000; the
    defenses uniform / jump / biased / bloom against none / mobile Pac-Man
    (hop 0.5) / two Pac-Men (0, 32) / an edge cut at 32, every attack at
-   step 2166; 16 seeds; 4500 steps there, cut to 3000 unless
+   step 2166; 16 seeds; 4500 steps there, cut to 2500 unless
    ``--zoo-steps`` says otherwise)
    through the port's ``figures.fig9_zoo`` experiment, one sweep on cuda:
    each group's decision and reason, captured ms per round,
@@ -134,7 +138,7 @@ Phases, each printed on its own line:
 9. figures: the port's drivers of Figs. 2, 3, 4, 6 and 7,
    ``theory_bounds`` and ``auto_eps`` (``repro_torch.figures``) on cuda at
    their reduced setting, cut to ``--figure-steps`` rounds (default
-   2400); each row's CSV is printed and must be finite, and each kernel's
+   2100); each row's CSV is printed and must be finite, and each kernel's
    launches must equal one per round of the groups whose path it is
    (whole_round in the fused groups, round_update in unfused DecAFork
    groups, theta_sums in ``auto_eps``'s auto runs) plus one warm-up round
@@ -216,7 +220,22 @@ Phases, each printed on its own line:
    50 rounds must be bitwise the same step on the CPU. (b) Two spawned
    ranks over gloo on CUDA tensors (NCCL refuses two ranks on one
    device), a 16-regular Cayley graph of n 4,096, random node and link
-   masks, 300 rounds: bitwise world size 1 on the same inputs.
+   masks, 300 rounds: bitwise world size 1 on the same inputs;
+13. families: phase 6's serving, measurements and gates for the moe,
+   hybrid, audio and vlm families at their published widths, with
+   ``use_pallas=True`` and weights from ``Model.init`` (seed 0), bf16,
+   batch 4, 32 new tokens: hymba-1.5b (prompt 512; flash_attention and
+   ssd_intra_chunk), musicgen-large (prompt 512 x 4 codebooks), qwen2-vl-2b
+   (512 text tokens after its 1,024-token vision prefix, M-RoPE) at their
+   published depths, and dbrx-132b and deepseek-v2-236b (MLA) cut to 2
+   layers (their 40 / 60 layers of bf16 weights do not fit the card's 80
+   GB). Each prefill must launch its kernels once per layer (deepseek-v2's
+   none: its MLA prefill runs the plain attention, as in the reference, so
+   it has no float32 kernel gate to run); captured decode tokens equal
+   the eager loop's (the MoE step, routing and dispatch included, captured
+   whole). Then each family's smoke config through ``generate`` on cuda
+   and, with the same weights, on the CPU: prefill logits within 2e-4,
+   greedy tokens equal up to a near tie.
 
 Before the last line it prints the card's name and power limit, then one
 JSON object with every kernel's launches, error and times; the last line
@@ -247,11 +266,36 @@ TC_FLOPS = {"bfloat16": 989e12, "float32": 495e12}
 # weights amplify that through 32-48 layers, so the served dtype's gap is
 # recorded and the gate is the float32 run of the same weights.
 F32_LOGIT_RTOL = 1e-4
+# phase 2's flash_attention shapes of phase 13's prefills (label, (B, S, H,
+# KV, D, window, dtype)), served in bf16 and gated in f32: GQA ratios 5
+# (hymba), 6 (dbrx, qwen2-vl) and 1 (musicgen); D 64 and 128; qwen2-vl's
+# S of 1,024 vision + 512 text
+FAMILY_ATTENTION = tuple(
+    (f"{name} {'prefill' if dt == 'bfloat16' else 'float32 gate'}", shape + (dt,))
+    for dt in ("bfloat16", "float32")
+    for name, shape in (("hymba-1.5b", (4, 512, 25, 5, 64, 0)),
+                        ("dbrx-132b", (4, 512, 48, 8, 128, 0)),
+                        ("musicgen-large", (4, 512, 32, 32, 64, 0)),
+                        ("qwen2-vl-2b", (4, 1536, 12, 2, 128, 0))))
 SERVE = (  # arch, batch, prompt, new tokens
     ("yi_6b", 4, 512, 32),
     ("mamba2_1_3b", 4, 512, 32),
     ("paper_rwsgd", 4, 128, 16),
 )
+# phase 13: the moe, hybrid, audio and vlm families at their published
+# widths (arch, batch, prompt tokens, new tokens, layers: None is the
+# published depth); the MoE pair's 40 / 60 layers of bf16 weights (about
+# 264 / 472 GB) do not fit the card's 80 GB, so they run 2; qwen2-vl-2b's
+# prompt is 512 text tokens after its 1,024-token vision prefix
+FAMILIES = (
+    ("hymba_1_5b", 4, 512, 32, None),
+    ("musicgen_large", 4, 512, 32, None),
+    ("qwen2_vl_2b", 4, 512, 32, None),
+    ("dbrx_132b", 4, 512, 32, 2),
+    ("deepseek_v2_236b", 4, 512, 32, 2),
+)
+FAMILY_SMOKE = (2, 64, 8)  # phase 13's smoke configs, cuda vs CPU: batch, prompt, new tokens
+CPU_LOGIT_TOL = 2e-4  # their prefill logits, cuda vs CPU (the CPU parity tests' tolerance)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 PAPER = dict(n=100, degree=8, z0=10, max_walks=64, rt_bins=1024, protocol_start=1000,
@@ -270,18 +314,19 @@ CHURN = dict(burst_times=(60, 140), burst_sizes=(5, 6), p_fail=0.002,
              pacman_node=4, pacman_start_time=100,
              node_crash_times=(50,), node_crash_ids=(3,))
 INT_FIELDS = ("z", "forks", "terms", "failures", "fork_parent", "terminated")
-# phase 9's default rounds, cut from the drivers' reduced 4500 to hold the
-# whole run near 700 s: the first burst (1500), Fig. 3's Byzantine phase
-# (1800) and Fig. 7's crash and Pac-Man (2033) still fire, the second
-# burst (3000) does not
-FIGURE_STEPS = 2400
+# phase 9's default rounds, cut from the drivers' reduced 4500 (to 2400,
+# then to 2100 when phase 13 came) to hold the whole run under the tool's
+# 1,200 s: the first burst (1500), Fig. 3's Byzantine phase (1800) and
+# Fig. 7's crash and Pac-Man (2033) still fire, the second burst (3000)
+# does not
+FIGURE_STEPS = 2100
 Z_BAND = (PAPER["z0"] / 2, 2 * PAPER["z0"])  # mean Z after the start must lie here
 # phase 8: Fig. 9's grid as benchmarks/fig9_zoo.py sets it under BENCH_FULL=1
 ZOO = dict(n=64, steps=4500, seeds=16, protocol_start=1000, parity_steps=200, parity_seeds=4)
-# phase 8's default rounds, cut from Fig. 9's 4500 to hold the whole run
-# near 900 s beside phase 10: the attacks (2166) still fire, 834 rounds
-# before the end
-ZOO_STEPS = 3000
+# phase 8's default rounds, cut from Fig. 9's 4500 (to 3000 beside phase
+# 10, then to 2500 beside phase 13) to hold the whole run under the tool's
+# 1,200 s: the attacks (2166) still fire, 334 rounds before the end
+ZOO_STEPS = 2500
 # phase 9: the port's figure drivers (name, module, the events of their
 # parity window: decisions, bursts and each driver's own attack moved into
 # its first FIGURE_PARITY rounds); Figs. 1 and 5 are phase 7
@@ -637,9 +682,7 @@ def check_model_kernels(rng, dev):
     import numpy as np
     import torch
 
-    from repro_torch.kernels import (
-        flash_attention, flash_attention_plain, ssd_intra_chunk, ssd_intra_chunk_plain,
-    )
+    from repro_torch.kernels import flash_attention, flash_attention_plain
 
     f32 = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32, device=dev)  # noqa: E731
     rows = {}
@@ -650,6 +693,7 @@ def check_model_kernels(rng, dev):
         ("window 96", (4, 256, 32, 4, 128, 96, "bfloat16")),
         ("D 64", (4, 512, 32, 4, 64, 0, "bfloat16")),
         ("D 256", (4, 512, 32, 4, 256, 0, "bfloat16")),
+        *FAMILY_ATTENTION,
     ):
         dtype = getattr(torch, dt)
         q, k, v = f32(B, S, H, D).to(dtype), f32(B, S, KV, D).to(dtype), f32(B, S, KV, D).to(dtype)
@@ -685,7 +729,22 @@ def check_model_kernels(rng, dev):
         else:
             rows["flash_attention"] = ent
 
-    B, nc, Q, H, P, N = 4, 2, 256, 64, 64, 128  # mamba2-1.3b, prompt 512
+    # mamba2-1.3b (the row) and hymba-1.5b, prompt 512: (label, B, nc, Q, H,
+    # P, N, whether the f32 kernel must be bitwise its plain version)
+    for label, *shape, bitwise in (("mamba2-1.3b prefill", 4, 2, 256, 64, 64, 128, True),
+                                   ("hymba-1.5b prefill", 4, 2, 256, 50, 64, 16, False)):
+        ssd_rows(rows, label, f32, *shape, bitwise)
+    return [rows["flash_attention"], rows["ssd_intra_chunk"]]
+
+
+def ssd_rows(rows, label, f32, B, nc, Q, H, P, N, bitwise):
+    """ssd_intra_chunk against its plain version at one shape, with bf16 B
+    / C (the served dtype) and f32 (the float32 gate's; bitwise where
+    ``bitwise``, else within 3e-4), into ``rows``."""
+    import torch
+
+    from repro_torch.kernels import ssd_intra_chunk, ssd_intra_chunk_plain
+
     x = f32(B, nc, Q, H, P)
     da = torch.cumsum(-torch.nn.functional.softplus(f32(B, nc, Q, H)) * torch.exp(f32(H)), dim=2)
     b, c = f32(B, nc, Q, N), f32(B, nc, Q, N)
@@ -696,7 +755,8 @@ def check_model_kernels(rng, dev):
         bd, cd = b.to(getattr(torch, dt)), c.to(getattr(torch, dt))
         got = ssd_intra_chunk(x, da, bd, cd)
         want = ssd_intra_chunk_plain(x, da, bd, cd)
-        if dt == "float32":  # the float32 gate needs the plain version's rounding: bitwise
+        if dt == "float32" and bitwise:
+            # mamba2-1.3b's float32 gate needs the plain version's rounding
             err, tol = max_abs_err(got, want), 0.0
         else:
             err, tol = 0.0, 3e-4
@@ -713,20 +773,19 @@ def check_model_kernels(rng, dev):
         bound, by = (tc_bound(nbytes, flops, "float32") if dt == "bfloat16"
                      else core_bound(nbytes, flops))
         shape = f"B={B},nc={nc},Q={Q},H={H},P={P},N={N},x f32,B/C {dt}"
-        log("kernels", kernel="ssd_intra_chunk", shape=shape, max_abs_err=err, tol=tol,
-            ms=f"{ms:.6f}", device_ms=f"{device_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
+        log("kernels", kernel="ssd_intra_chunk", case=repr(label), shape=shape, max_abs_err=err,
+            tol=tol, ms=f"{ms:.6f}", device_ms=f"{device_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
             bound_ms=f"{bound:.6f}", bound_by=by, bytes=nbytes, flops=flops)
         src = "ssd_intra_chunk_sm90.cu" if dt == "bfloat16" else "ssd_intra_chunk.cu"
         ent = dict(
             name="ssd_intra_chunk", route="cuda", source=f"src/repro_torch/csrc/{src}",
             replaces="src/repro/kernels/ssd_scan.py:53", max_abs_err=err, ms=ms,
             device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
-            library_device_ms=None, shape=shape, bytes=nbytes, flops=flops, tol=tol)
+            library_device_ms=None, shape=shape, bytes=nbytes, flops=flops, tol=tol, case=label)
         if "ssd_intra_chunk" in rows:
             rows["ssd_intra_chunk"].setdefault("other_shapes", []).append(ent)
         else:
             rows["ssd_intra_chunk"] = ent
-    return [rows["flash_attention"], rows["ssd_intra_chunk"]]
 
 
 # ---------------------------------------------------------------------------
@@ -734,38 +793,60 @@ def check_model_kernels(rng, dev):
 # ---------------------------------------------------------------------------
 
 
-def greedy_plain(model, params, tokens, new):
+def greedy_plain(model, params, batch, new):
     """The plain path's greedy tokens and, per step, the top-2 logit gap
-    (B, new) of the logits each token was chosen from."""
+    of the logits each token was chosen from, (B, new[, nq]) each, with
+    the decode cache sized as ``generate`` sizes it."""
     import torch
 
     from repro_torch.launch.serve import expand_cache
 
-    last, cache = model.prefill(params, {"tokens": tokens})
-    cache = expand_cache(model, cache, tokens.shape[1] + new + 1)
+    last, cache = model.prefill(params, batch)
+    cache = expand_cache(model, cache, batch["tokens"].shape[1] + new + 1)
     toks, gaps, logits = [], [], last.clone()
     for i in range(new):
         top = torch.topk(logits[:, 0].float(), 2, dim=-1).values
-        gaps.append(top[:, 0] - top[:, 1])
+        gaps.append(top[..., 0] - top[..., 1])
         toks.append(torch.argmax(logits[:, 0], dim=-1).to(torch.int32))
         if i < new - 1:
             logits, cache = model.decode_step(params, cache, {"tokens": toks[-1][:, None]})
     return last, torch.stack(toks, 1), torch.stack(gaps, 1)
 
 
-def prefill_launches(model, params, tokens, kern, layers, what):
-    """Last-position logits of one prefill, checking that it launched
-    ``kern`` once per layer (none for the plain path)."""
-    before = kern.launches
-    last, _ = model.prefill(params, {"tokens": tokens})
-    want = layers if model.cfg.use_pallas else 0
-    if kern.launches - before != want:
-        raise AssertionError(f"{what}: {kern.__name__} launched {kern.launches - before} "
-                             f"times in one prefill, expected {want}")
+def path_kernels(cfg):
+    """The model kernels a prefill of ``cfg`` launches once per layer under
+    ``use_pallas``: flash_attention for attention (not MLA's, which runs
+    the plain attention, as in the reference), ssd_intra_chunk for the
+    SSM mixer (the ssm and hybrid families)."""
+    from repro_torch.kernels import flash_attention, ssd_intra_chunk
+
+    out = []
+    if cfg.arch_type != "ssm" and not cfg.use_mla:
+        out.append(flash_attention)
+    if cfg.arch_type in ("ssm", "hybrid"):
+        out.append(ssd_intra_chunk)
+    return tuple(out)
+
+
+def prefill_launches(model, params, batch, what):
+    """Last-position logits of one prefill, checking that it launched each
+    kernel of its path once per layer and no other model kernel (none at
+    all on the plain path)."""
+    from repro_torch.kernels import flash_attention, ssd_intra_chunk
+
+    cfg = model.cfg
+    on_path = path_kernels(cfg) if cfg.use_pallas else ()
+    before = {k: k.launches for k in (flash_attention, ssd_intra_chunk)}
+    last, _ = model.prefill(params, batch)
+    for k, n in before.items():
+        want = cfg.num_layers if k in on_path else 0
+        if k.launches - n != want:
+            raise AssertionError(f"{what}: {k.__name__} launched {k.launches - n} times in one "
+                                 f"prefill, expected {want}")
     return last
 
 
-def ssd_in_f64_gap(model, params, toks, plain32):
+def ssd_in_f64_gap(model, params, batch, plain32):
     """The float32 prefill logits' gap to the plain path when the SSD
     intra-chunk block is computed in float64 (then rounded to float32)
     instead of by the kernel: how far an exact block lands from the plain
@@ -788,13 +869,13 @@ def ssd_in_f64_gap(model, params, toks, plain32):
     kern = ops.ssd_intra_chunk
     ops.ssd_intra_chunk = block_f64
     try:
-        last, _ = model.prefill(params, {"tokens": toks})
+        last, _ = model.prefill(params, batch)
     finally:
         ops.ssd_intra_chunk = kern
     return float((last - plain32).abs().max())
 
 
-def profile_decode(model, params, tokens, steps=4):
+def profile_decode(model, params, batch, steps=4):
     """One eager decode step (decode_step plus greedy sampling) under
     torch.profiler, ``steps`` times after a warm-up step: CUDA kernels per
     step, their device ms per step and the busy share (kernel time over
@@ -803,8 +884,8 @@ def profile_decode(model, params, tokens, steps=4):
 
     from repro_torch.launch.serve import expand_cache
 
-    last, cache = model.prefill(params, {"tokens": tokens})
-    cache = expand_cache(model, cache, tokens.shape[1] + steps + 2)
+    last, cache = model.prefill(params, batch)
+    cache = expand_cache(model, cache, batch["tokens"].shape[1] + steps + 2)
     tok = torch.argmax(last, dim=-1).to(torch.int32)
     logits, cache = model.decode_step(params, cache, {"tokens": tok})
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -826,7 +907,7 @@ def _busy(events, wall_us, steps):
                 busy_share=busy / wall_us)
 
 
-def profile_decode_captured(model, params, tokens, new):
+def profile_decode_captured(model, params, batch, new):
     """The captured decode loop under torch.profiler: a prefill (outside
     the window) into the model's one ``DecodeGraph``, then its ``new`` - 1
     replays, greedy. Kernels per step (the graph's nodes, attributed),
@@ -838,150 +919,266 @@ def profile_decode_captured(model, params, tokens, new):
     from repro_torch.utils import prng
 
     (runner,) = model.decode_graphs.values()
-    last, cache = model.prefill(params, {"tokens": tokens})
-    expand_cache(model, cache, tokens.shape[1] + new + 1, out=runner.cache)
+    last, cache = model.prefill(params, batch)
+    expand_cache(model, cache, batch["tokens"].shape[1] + new + 1, out=runner.cache)
     del cache
-    tok = torch.argmax(last, dim=-1).to(torch.int32).reshape(-1, 1)
-    key = prng.key(0, device=tokens.device)
+    tok = torch.argmax(last, dim=-1).to(torch.int32).reshape(runner.bufs["tok"].shape)
+    key = prng.key(0, device=tok.device)
     _seen, events, wall_us = device_launches(lambda: runner.run(model, params, tok, key, 0))
     out = _busy(events, wall_us, new - 1)
     out["graph_kernel_nodes"] = runner.graph.kernel_nodes
     return out
 
 
+def token_gate(gen, want, gaps, bound, what):
+    """``gen``'s greedy tokens (B, new[, nq]) equal ``want``'s up to each
+    stream's first step whose top-2 gap (the smallest over codebooks) is
+    within ``bound`` (a legitimate flip; the streams' contexts differ
+    after it). Returns (steps compared, streams stopped at a near tie)."""
+    B, new = gaps.shape[:2]
+    gaps = gaps.reshape(B, new, -1).amin(-1)
+    compared, ties = 0, 0
+    for b in range(B):
+        for i in range(new):
+            if float(gaps[b, i]) <= bound:
+                ties += 1
+                break
+            compared += 1
+            if not bool((gen[b, i] == want[b, i]).all()):
+                raise AssertionError(f"{what}: stream {b} step {i}: token {gen[b, i].tolist()} "
+                                     f"!= {want[b, i].tolist()} with top-2 gap "
+                                     f"{float(gaps[b, i])} > {bound}")
+    return compared, ties
+
+
+def serve_one(cfg, batch_in, new, dev):
+    """Phase 6's measurements and gates for one model (``cfg`` with
+    ``use_pallas=True``) on one request batch; returns its results."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import flash_attention, ssd_intra_chunk
+    from repro_torch.launch.serve import generate, generate_eager
+    from repro_torch.models import Model
+    from repro_torch.utils import prng
+
+    arch, L = cfg.name, cfg.num_layers
+    kerns = path_kernels(cfg)
+    batch = batch_in["tokens"].shape[0]
+    per_token = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    model, plain = Model(cfg), Model(dataclasses.replace(cfg, use_pallas=False))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(prng.key(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in params.parameters())
+
+    # the served dtype, through the kernels: a first generate captures
+    # the decode step, a second refills the allocator's cache (the
+    # capture empties it) and keeps first-use costs of the library's
+    # matrix products out of the timing; the third, timed, replays the
+    # graph; then the eager loop on the same inputs
+    before = {k: k.launches for k in (flash_attention, ssd_intra_chunk)}
+    generate(model, params, batch_in, new)
+    (decode_graph,) = model.decode_graphs.values()
+    generate(model, params, batch_in, new)
+    torch.cuda.reset_peak_memory_stats()
+    gen, stats = generate(model, params, batch_in, new)
+    torch.cuda.synchronize()
+    serve_peak = torch.cuda.max_memory_allocated()
+    eager_gen, eager_stats = generate_eager(model, params, batch_in, new)
+    for k, n in before.items():  # one prefill in each generate
+        if k.launches - n != (4 * L if k in kerns else 0):
+            raise AssertionError(f"{arch}: generate launched {k.__name__} {k.launches - n} "
+                                 f"times in four prefills of {L} layers")
+    if len(model.decode_graphs) != 1:
+        raise AssertionError(f"{arch}: one signature captured {len(model.decode_graphs)} graphs")
+    if not (gen.shape == (batch, new) + per_token and int(gen.min()) >= 0
+            and int(gen.max()) < cfg.vocab_size):
+        raise AssertionError(f"{arch}: generated tokens of shape {tuple(gen.shape)} out of range")
+    if not torch.equal(gen, eager_gen):
+        raise AssertionError(f"{arch}: captured decode tokens differ from the eager loop's")
+    decode_prof = profile_decode(model, params, batch_in)
+    captured_prof = profile_decode_captured(model, params, batch_in, new)
+    last = prefill_launches(model, params, batch_in, arch)
+    plain_last = prefill_launches(plain, params, batch_in, arch)
+    if not (torch.isfinite(last).all() and torch.isfinite(plain_last).all()):
+        raise AssertionError(f"{arch}: non-finite prefill logits")
+    served_gap = float((last.float() - plain_last.float()).abs().max())
+    served_scale = float(plain_last.float().abs().max())
+
+    # the gate, in float32 (the same weights, upcast in place): kernel
+    # path against plain path, prefill logits and greedy tokens; a model
+    # with no kernel on its path has nothing to hold
+    gate = dict(f32_gate="none: no kernel on the path") if not kerns else {}
+    if kerns:
+        if cfg.dtype != "float32":
+            params.float()
+            model = Model(dataclasses.replace(cfg, dtype="float32"))
+            plain = Model(dataclasses.replace(cfg, dtype="float32", use_pallas=False))
+        gen32, stats32 = generate(model, params, batch_in, new)
+        last32 = prefill_launches(model, params, batch_in, f"{arch} f32")
+        plain32, plain_gen32, gaps = greedy_plain(plain, params, batch_in, new)
+        scale = float(plain32.abs().max())
+        err = float((last32 - plain32).abs().max())
+        bound = F32_LOGIT_RTOL * scale
+        if err > bound:
+            raise AssertionError(f"{arch}: float32 prefill logits differ by {err} > {bound}")
+        compared, ties = token_gate(gen32, plain_gen32, gaps, bound, f"{arch} float32")
+        exact_gap = (ssd_in_f64_gap(model, params, batch_in, plain32)
+                     if ssd_intra_chunk in kerns else None)
+        gate = dict(f32_logits_max_abs_err=err, f32_logits_bound=bound, f32_logit_scale=scale,
+                    f32_tokens_compared=compared, f32_streams_stopped_at_a_near_tie=ties,
+                    f32_logits_err_with_ssd_block_in_f64=exact_gap,
+                    f32_prefill_ms=stats32["prefill_s"] * 1e3)
+    prefill_ms = stats["prefill_s"] * 1e3
+    step_ms = stats["decode_s"] * 1e3 / max(stats["decode_steps"], 1)
+    out = dict(arch=arch, params=n_params, dtype=cfg.dtype, layers=L, batch=batch,
+               prompt=int(batch_in["tokens"].shape[1]),
+               vision_tokens=cfg.vision_tokens if cfg.arch_type == "vlm" else 0,
+               new_tokens=new, init_s=init_s, init_peak_bytes=init_peak,
+               serve_peak_bytes=serve_peak, prefill_ms=prefill_ms, decode_s=stats["decode_s"],
+               decode_steps=stats["decode_steps"], decode_tokens_per_s=stats["tokens_per_s"],
+               decode_ms_per_step=step_ms, decode_capture_s=decode_graph.capture_s,
+               eager_decode_tokens_per_s=eager_stats["tokens_per_s"],
+               eager_decode_ms_per_step=eager_stats["decode_s"] * 1e3
+               / max(eager_stats["decode_steps"], 1),
+               eager_step_profile=decode_prof, captured_step_profile=captured_prof,
+               captured_tokens_equal_eager=True,
+               served_dtype_logit_gap=served_gap, served_dtype_logit_scale=served_scale,
+               kernels=[k.__name__ for k in kerns], kernel_launches_per_prefill=L, **gate)
+    f32_log = (dict(f32_gate=gate["f32_gate"]) if not kerns else dict(
+        f32_logits_max_abs_err=gate["f32_logits_max_abs_err"],
+        f32_bound=f"{gate['f32_logits_bound']:.3g}",
+        f32_tokens_compared=gate["f32_tokens_compared"],
+        near_ties=gate["f32_streams_stopped_at_a_near_tie"],
+        f32_err_with_ssd_block_in_f64=gate["f32_logits_err_with_ssd_block_in_f64"],
+        f32_prefill_ms=f"{gate['f32_prefill_ms']:.3f}"))
+    log("serve", arch=arch, params=n_params, dtype=cfg.dtype, layers=L,
+        init_s=f"{init_s:.3f}", init_peak_GiB=f"{init_peak / 2**30:.3f}",
+        serve_peak_GiB=f"{serve_peak / 2**30:.3f}", prefill_ms=f"{prefill_ms:.3f}",
+        decode_steps=stats["decode_steps"], decode_tokens_per_s=f"{stats['tokens_per_s']:.1f}",
+        eager_decode_tokens_per_s=f"{eager_stats['tokens_per_s']:.1f}",
+        decode_capture_s=f"{decode_graph.capture_s:.3f}",
+        eager_step_kernels=decode_prof["kernels_per_step"],
+        eager_step_busy_share=f"{decode_prof['busy_share']:.4f}",
+        captured_step_kernels=captured_prof["kernels_per_step"],
+        captured_step_kernel_ms=f"{captured_prof['kernel_ms_per_step']:.4f}",
+        captured_step_busy_share=f"{captured_prof['busy_share']:.4f}",
+        tokens="captured == eager", served_logit_gap=f"{served_gap}/{served_scale}",
+        **f32_log,
+        launches_per_prefill=",".join(f"{k.__name__}:{L}" for k in kerns) or "none")
+    del params, model, plain
+    torch.cuda.empty_cache()
+    return out
+
+
 def serve_models(dev):
     """Phase 6 for each model of ``SERVE``; returns (results, launches of
     flash_attention and ssd_intra_chunk over the phase)."""
-    import dataclasses
-
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import KERNELS, flash_attention, ssd_intra_chunk
-    from repro_torch.launch.serve import generate, generate_eager
-    from repro_torch.models import Model
-    from repro_torch.utils import prng
 
     for k in KERNELS:  # this path's counts start here
         k.launches = 0
     res = {}
     for arch, batch, prompt, new in SERVE:
         cfg = get_config(arch, use_pallas=True)
-        L = cfg.num_layers
-        kern = ssd_intra_chunk if cfg.arch_type == "ssm" else flash_attention
-        model, plain = Model(cfg), Model(dataclasses.replace(cfg, use_pallas=False))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        params = model.init(prng.key(0), dev)
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        init_peak = torch.cuda.max_memory_allocated()
-        n_params = sum(p.numel() for p in params.parameters())
         toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (batch, prompt)),
                                dtype=torch.int32, device=dev)
-        batch_in = {"tokens": toks}
+        res[arch] = serve_one(cfg, {"tokens": toks}, new, dev)
+    return res, {"flash_attention": flash_attention.launches,
+                 "ssd_intra_chunk": ssd_intra_chunk.launches}
 
-        # the served dtype, through the kernels: a first generate captures
-        # the decode step, a second refills the allocator's cache (the
-        # capture empties it) and keeps first-use costs of the library's
-        # matrix products out of the timing; the third, timed, replays the
-        # graph; then the eager loop on the same inputs
-        before = kern.launches
-        generate(model, params, batch_in, new)
-        (decode_graph,) = model.decode_graphs.values()
-        generate(model, params, batch_in, new)
-        torch.cuda.reset_peak_memory_stats()
-        gen, stats = generate(model, params, batch_in, new)
-        torch.cuda.synchronize()
-        serve_peak = torch.cuda.max_memory_allocated()
-        eager_gen, eager_stats = generate_eager(model, params, batch_in, new)
-        if kern.launches - before != 4 * L:  # one prefill in each generate
-            raise AssertionError(f"{arch}: generate did not launch {kern.__name__} once per layer")
-        if len(model.decode_graphs) != 1:
-            raise AssertionError(f"{arch}: one signature captured {len(model.decode_graphs)} graphs")
-        if not (gen.shape == (batch, new) and int(gen.min()) >= 0
-                and int(gen.max()) < cfg.vocab_size):
-            raise AssertionError(f"{arch}: generated tokens of shape {tuple(gen.shape)} out of range")
-        if not torch.equal(gen, eager_gen):
-            raise AssertionError(f"{arch}: captured decode tokens differ from the eager loop's")
-        decode_prof = profile_decode(model, params, toks)
-        captured_prof = profile_decode_captured(model, params, toks, new)
-        last = prefill_launches(model, params, toks, kern, L, arch)
-        plain_last = prefill_launches(plain, params, toks, kern, L, arch)
-        if not (torch.isfinite(last).all() and torch.isfinite(plain_last).all()):
-            raise AssertionError(f"{arch}: non-finite prefill logits")
-        served_gap = float((last.float() - plain_last.float()).abs().max())
-        served_scale = float(plain_last.float().abs().max())
 
-        # the gate, in float32 (the same weights, upcast in place): kernel
-        # path against plain path, prefill logits and greedy tokens
-        if cfg.dtype != "float32":
-            params.float()
-            model = Model(dataclasses.replace(cfg, dtype="float32"))
-            plain = Model(dataclasses.replace(cfg, dtype="float32", use_pallas=False))
-        gen32, stats32 = generate(model, params, batch_in, new)
-        last32 = prefill_launches(model, params, toks, kern, L, f"{arch} f32")
-        plain32, plain_gen32, gaps = greedy_plain(plain, params, toks, new)
-        scale = float(plain32.abs().max())
-        err = float((last32 - plain32).abs().max())
-        bound = F32_LOGIT_RTOL * scale
-        if err > bound:
-            raise AssertionError(f"{arch}: float32 prefill logits differ by {err} > {bound}")
-        # greedy tokens: equal up to each stream's first step whose plain
-        # top-2 gap is within the bound (a legitimate flip; the streams'
-        # contexts differ after it)
-        compared, ties = 0, 0
-        for b in range(batch):
-            for i in range(new):
-                if float(gaps[b, i]) <= bound:
-                    ties += 1
-                    break
-                compared += 1
-                if int(gen32[b, i]) != int(plain_gen32[b, i]):
-                    raise AssertionError(f"{arch}: stream {b} step {i}: kernel token "
-                                         f"{int(gen32[b, i])} != plain {int(plain_gen32[b, i])} "
-                                         f"with top-2 gap {float(gaps[b, i])} > {bound}")
-        exact_gap = ssd_in_f64_gap(model, params, toks, plain32) if cfg.arch_type == "ssm" else None
-        prefill_ms = stats["prefill_s"] * 1e3
-        step_ms = stats["decode_s"] * 1e3 / max(stats["decode_steps"], 1)
-        out = dict(arch=cfg.name, params=n_params, dtype=cfg.dtype, layers=L, batch=batch,
-                   prompt=prompt, new_tokens=new, init_s=init_s, init_peak_bytes=init_peak,
-                   serve_peak_bytes=serve_peak, prefill_ms=prefill_ms, decode_s=stats["decode_s"],
-                   decode_steps=stats["decode_steps"], decode_tokens_per_s=stats["tokens_per_s"],
-                   decode_ms_per_step=step_ms, decode_capture_s=decode_graph.capture_s,
-                   eager_decode_tokens_per_s=eager_stats["tokens_per_s"],
-                   eager_decode_ms_per_step=eager_stats["decode_s"] * 1e3
-                   / max(eager_stats["decode_steps"], 1),
-                   eager_step_profile=decode_prof, captured_step_profile=captured_prof,
-                   captured_tokens_equal_eager=True,
-                   served_dtype_logit_gap=served_gap, served_dtype_logit_scale=served_scale,
-                   f32_logits_max_abs_err=err, f32_logits_bound=bound, f32_logit_scale=scale,
-                   f32_tokens_compared=compared, f32_streams_stopped_at_a_near_tie=ties,
-                   f32_logits_err_with_ssd_block_in_f64=exact_gap,
-                   f32_prefill_ms=stats32["prefill_s"] * 1e3,
-                   kernel=kern.__name__, kernel_launches_per_prefill=L)
-        res[arch] = out
-        log("serve", arch=cfg.name, params=n_params, dtype=cfg.dtype, init_s=f"{init_s:.3f}",
-            init_peak_GiB=f"{init_peak / 2**30:.3f}", serve_peak_GiB=f"{serve_peak / 2**30:.3f}",
-            prefill_ms=f"{prefill_ms:.3f}", decode_steps=stats["decode_steps"],
-            decode_tokens_per_s=f"{stats['tokens_per_s']:.1f}",
-            eager_decode_tokens_per_s=f"{eager_stats['tokens_per_s']:.1f}",
-            decode_capture_s=f"{decode_graph.capture_s:.3f}",
-            eager_step_kernels=decode_prof["kernels_per_step"],
-            eager_step_busy_share=f"{decode_prof['busy_share']:.4f}",
-            captured_step_kernels=captured_prof["kernels_per_step"],
-            captured_step_kernel_ms=f"{captured_prof['kernel_ms_per_step']:.4f}",
-            captured_step_busy_share=f"{captured_prof['busy_share']:.4f}",
-            tokens="captured == eager",
-            served_logit_gap=f"{served_gap}/{served_scale}", f32_logits_max_abs_err=err,
-            f32_bound=f"{bound:.3g}", f32_tokens_compared=compared, near_ties=ties,
-            f32_err_with_ssd_block_in_f64=exact_gap,
-            f32_prefill_ms=f"{stats32['prefill_s'] * 1e3:.3f}",
-            launches_per_prefill=f"{kern.__name__}:{L}")
-        del params, model, plain
-        torch.cuda.empty_cache()
+# ---------------------------------------------------------------------------
+# phase 13: the moe, hybrid, audio and vlm families
+# ---------------------------------------------------------------------------
+
+
+def family_batch(cfg, batch, prompt, seed, dev):
+    """A request batch of ``batch`` streams: ``prompt`` token ids each
+    ((batch, prompt, nq) with codebooks), drawn from ``seed`` with numpy,
+    and for the vlm its vision embeddings (batch, vision_tokens, 1024)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.transformer import VISION_EMBED_DIM
+
+    rng = np.random.default_rng(seed)
+    shape = (batch, prompt) + ((cfg.num_codebooks,) if cfg.num_codebooks else ())
+    out = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, shape), dtype=torch.int32,
+                                     device=dev)}
+    if cfg.arch_type == "vlm":
+        out["vision_embeds"] = torch.as_tensor(
+            rng.standard_normal((batch, cfg.vision_tokens, VISION_EMBED_DIM)),
+            dtype=torch.float32, device=dev)
+    return out
+
+
+def family_cpu_parity(arch, dev):
+    """A family's smoke config through ``generate`` on cuda (its kernels)
+    and its weights, copied, on the CPU (their plain versions): prefill
+    logits within ``CPU_LOGIT_TOL``, greedy tokens equal up to a near tie
+    (a top-2 gap within twice that)."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Model
+    from repro_torch.utils import prng
+
+    b, prompt, new = FAMILY_SMOKE
+    cfg = get_smoke_config(arch, use_pallas=True)
+    model = Model(cfg)
+    params = model.init(prng.key(0), dev)
+    cpu_params = copy.deepcopy(params).to("cpu")
+    batch = family_batch(cfg, b, prompt, 2, dev)
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    last = prefill_launches(model, params, batch, f"{cfg.name} smoke")
+    gen, _ = generate(model, params, batch, new)
+    cpu_last, cpu_gen, gaps = greedy_plain(model, cpu_params, cpu_batch, new)
+    err = float((last.cpu() - cpu_last).abs().max())
+    torch.testing.assert_close(last.cpu(), cpu_last, rtol=CPU_LOGIT_TOL, atol=CPU_LOGIT_TOL)
+    compared, ties = token_gate(gen.cpu(), cpu_gen, gaps.cpu(), 2 * CPU_LOGIT_TOL,
+                                f"{cfg.name} cuda vs cpu")
+    return dict(arch=cfg.name, batch=b, prompt=prompt, new_tokens=new, max_abs_err=err,
+                tol=CPU_LOGIT_TOL, tokens_compared=compared, near_ties=ties)
+
+
+def families_phase(dev):
+    """Phase 13 for each model of ``FAMILIES``, then each family's smoke
+    config cuda against the CPU; returns (results, launches of
+    flash_attention and ssd_intra_chunk over the phase)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS, flash_attention, ssd_intra_chunk
+
+    for k in KERNELS:  # this path's counts start here
+        k.launches = 0
+    res = {}
+    for arch, batch, prompt, new, layers in FAMILIES:
+        over = dict(use_pallas=True)
+        if layers is not None:
+            over["num_layers"] = layers
+            log("families", arch=arch, cut=f"{layers} of {get_config(arch).num_layers} layers; "
+                                           "every width uncut")
+        cfg = get_config(arch, **over)
+        res[arch] = serve_one(cfg, family_batch(cfg, batch, prompt, 1, dev), new, dev)
+        res[arch]["published_layers"] = get_config(arch).num_layers
+    res["cpu_parity"] = {}
+    for arch, *_ in FAMILIES:
+        r = res["cpu_parity"][arch] = family_cpu_parity(arch, dev)
+        log("families", smoke=r["arch"], cuda_vs_cpu_logits=f"{r['max_abs_err']}<={r['tol']}",
+            tokens_compared=r["tokens_compared"], near_ties=r["near_ties"])
     return res, {"flash_attention": flash_attention.launches,
                  "ssd_intra_chunk": ssd_intra_chunk.launches}
 
@@ -2981,6 +3178,10 @@ def main() -> int:
     lap("11 durable")
     sharded = sharded_phase()
     lap("12 sharded")
+    families, family_counts = families_phase("cuda")
+    for k, v in family_counts.items():
+        counts[k] += v
+    lap("13 families")
     log("time", **{k.replace(" ", "_"): f"{v:.1f}" for k, v in phase_s.items()})
 
     for r in rows:
@@ -2995,7 +3196,7 @@ def main() -> int:
                   main=main_res, profile=profile, parity=parity, unfused=unfused,
                   captured_vs_eager=captured, serve=serve, sweep=sweep, zoo=zoo,
                   figures=figures, payload=payload, durable=durable, sharded=sharded,
-                  phase_s=phase_s)
+                  families=families, phase_s=phase_s)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(detail, fh, indent=1)

@@ -3,8 +3,11 @@ of ``repro.launch.serve``).
 
 One ``decode_step`` per token over a batch of streams, greedy or
 temperature sampling, ring-buffer KV caches (sliding-window archs), and
-the EOS freeze with a periodic early exit. On the card the decode step
-and its sampling replay as one captured CUDA graph per token.
+the EOS freeze with a periodic early exit (off for codebook tokens, as in
+the reference). On the card the decode step and its sampling replay as
+one captured CUDA graph per token. A batch is what the model's prefill
+takes (``models.model.batch_spec``): token ids (B, S), (B, S, nq) for
+the audio family's codebooks, and the vlm's ``vision_embeds``.
 
   from repro_torch.launch.serve import generate
   tokens, stats = generate(model, params, prompts, max_new_tokens=64)
@@ -28,7 +31,7 @@ from repro_torch.utils.tree import tree_clone, tree_leaves
 
 
 def _sample(logits: torch.Tensor, key, temperature: float, partitionable: bool) -> torch.Tensor:
-    """logits: (B, 1, V) -> int32 token ids (B, 1)."""
+    """logits: (B, 1, V[, nq]) -> int32 token ids of the batch shape."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     return prng.categorical(key, logits / temperature, partitionable=partitionable).to(torch.int32)
@@ -92,16 +95,19 @@ class DecodeGraph:
                  max_new_tokens: int, temperature: float, eos_id: Optional[int],
                  partitionable: bool):
         self.temperature, self.eos_id, self.partitionable = temperature, eos_id, partitionable
+        self.track_eos = _tracks_eos(model, eos_id)
         self.max_new_tokens = max_new_tokens
         B = batch_size
+        per_token = _token_shape(model)  # () or (nq,)
         self.cache = model.init_cache(B, total_len, device=device)
         self.bufs = {
             "cache": self.cache,
-            "tok": torch.empty((B, 1), dtype=torch.int32, device=device),
+            "tok": torch.empty((B, 1) + per_token, dtype=torch.int32, device=device),
             "key": torch.empty((2,), dtype=torch.int64, device=device),
             "i": torch.zeros((), dtype=torch.int64, device=device),
             "finished": torch.zeros((B,), dtype=torch.bool, device=device),
-            "gen": torch.zeros((B, max_new_tokens), dtype=torch.int32, device=device),
+            "gen": torch.zeros((B, max_new_tokens) + per_token, dtype=torch.int32,
+                               device=device),
         }
         self.graph = None
         self.capture_s = None  # host seconds of the warm-up and capture
@@ -110,8 +116,9 @@ class DecodeGraph:
         """One token on the buffers ``b``: the captured work."""
         logits, _ = model.decode_step(params, b["cache"], {"tokens": b["tok"]})
         b["key"].copy_(prng.fold_in(b["key"], b["i"]))
-        nxt = _sample(logits, b["key"], self.temperature, self.partitionable).reshape(-1, 1)
-        if self.eos_id is not None:
+        nxt = _sample(logits, b["key"], self.temperature, self.partitionable).reshape(
+            b["tok"].shape)
+        if self.track_eos:
             b["finished"].logical_or_(b["tok"][:, 0] == self.eos_id)
             nxt = torch.where(b["finished"][:, None], torch.full_like(nxt, self.eos_id), nxt)
         b["tok"].copy_(nxt)
@@ -140,7 +147,7 @@ class DecodeGraph:
             self.capture_s = time.perf_counter() - t0
         steps = 0
         for i in range(self.max_new_tokens - 1):
-            if (self.eos_id is not None and eos_check_every > 0 and i % eos_check_every == 0
+            if (self.track_eos and eos_check_every > 0 and i % eos_check_every == 0
                     and bool(b["finished"].all())):
                 break  # every stream frozen: the rest would all be eos
             if cuda:
@@ -176,24 +183,38 @@ def _decode_graph(model: Model, sig: tuple, make) -> DecodeGraph:
     return runner
 
 
-def _prefill(model, params, tokens, max_new_tokens, temperature, key, partitionable):
+def _token_shape(model: Model) -> tuple:
+    """The shape of one stream's token at one step: () or (nq,)."""
+    nq = model.cfg.num_codebooks
+    return (nq,) if nq else ()
+
+
+def _tracks_eos(model: Model, eos_id: Optional[int]) -> bool:
+    """Whether streams freeze at ``eos_id``: never for codebook tokens,
+    as in the reference."""
+    return eos_id is not None and not model.cfg.num_codebooks
+
+
+def _prefill(model, params, batch, max_new_tokens, temperature, key, partitionable):
     """The prefill (eager), a new decode cache and the first token."""
+    tokens = batch["tokens"]
     dev = tokens.device
     _sync(dev)
     t0 = time.perf_counter()
-    last_logits, cache = model.prefill(params, {"tokens": tokens})
+    last_logits, cache = model.prefill(params, batch)
     cache = expand_cache(model, cache, tokens.shape[1] + max_new_tokens + 1)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
-    tok = _sample(last_logits, key, temperature, partitionable).reshape(tokens.shape[0], 1)
+    tok = _sample(last_logits, key, temperature, partitionable).reshape(
+        (tokens.shape[0], 1) + _token_shape(model))
     return cache, tok, t_prefill
 
 
 def _finish(gen, decode_steps, t_prefill, t_decode, max_new_tokens, eos_id):
     B = gen.shape[0]
     if gen.shape[1] < max_new_tokens:  # early exit: pad the frozen tail
-        pad = torch.full((B, max_new_tokens - gen.shape[1]), eos_id, dtype=gen.dtype,
-                         device=gen.device)
+        pad = torch.full((B, max_new_tokens - gen.shape[1]) + tuple(gen.shape[2:]), eos_id,
+                         dtype=gen.dtype, device=gen.device)
         gen = torch.cat([gen, pad], dim=1)
     stats = {
         "prefill_s": t_prefill,
@@ -218,13 +239,17 @@ def generate(
     partitionable: bool = True,
 ):
     """Prefill ``batch`` then decode up to ``max_new_tokens`` greedily or
-    sampled; runs where ``batch["tokens"]`` and ``params`` lie.
+    sampled; runs where ``batch["tokens"]`` and ``params`` lie. The
+    decode cache holds ``batch["tokens"].shape[1] + max_new_tokens + 1``
+    positions, as in the reference (for the vlm the text's length, not
+    the vision prefix's: a prefix longer than ``max_new_tokens + 1``
+    leaves no prefill cache, see :func:`expand_cache`).
 
-    Returns (generated (B, max_new_tokens) int32, stats). Streams that hit
-    ``eos_id`` keep emitting it (finished mask); the loop exits early once
-    every stream is finished, checked on the host every
-    ``eos_check_every`` steps, and the rest is padded with ``eos_id`` --
-    what the full loop would have emitted. ``stats``: ``prefill_s``,
+    Returns (generated (B, max_new_tokens[, nq]) int32, stats). Streams
+    that hit ``eos_id`` keep emitting it (finished mask; not for codebook
+    tokens); the loop exits early once every stream is finished, checked
+    on the host every ``eos_check_every`` steps, and the rest is padded
+    with ``eos_id`` -- what the full loop would have emitted. ``stats``: ``prefill_s``,
     ``decode_s`` (host clock after a device synchronize),
     ``decode_steps`` (steps executed) and ``tokens_per_s``.
 
@@ -243,7 +268,7 @@ def generate(
     B, total = tokens.shape[0], tokens.shape[1] + max_new_tokens + 1
     _sync(dev)
     t0 = time.perf_counter()
-    last_logits, cache = model.prefill(params, {"tokens": tokens})
+    last_logits, cache = model.prefill(params, batch)
     sig = _decode_signature(params, cache, total, max_new_tokens, temperature, eos_id,
                             partitionable)
     runner = _decode_graph(model, sig, lambda: DecodeGraph(
@@ -252,7 +277,8 @@ def generate(
     del cache
     _sync(dev)
     t_prefill = time.perf_counter() - t0
-    tok = _sample(last_logits, key, temperature, partitionable).reshape(B, 1)
+    tok = _sample(last_logits, key, temperature, partitionable).reshape(
+        (B, 1) + _token_shape(model))
     t0 = time.perf_counter()
     gen, decode_steps = runner.run(model, params, tok, key, eos_check_every)
     _sync(dev)
@@ -279,11 +305,11 @@ def generate_eager(
     dev = tokens.device
     if key is None:
         key = prng.key(0, device=dev)
-    cache, tok, t_prefill = _prefill(model, params, tokens, max_new_tokens, temperature, key,
+    cache, tok, t_prefill = _prefill(model, params, batch, max_new_tokens, temperature, key,
                                      partitionable)
     B = tokens.shape[0]
     finished = torch.zeros((B,), dtype=torch.bool, device=dev)
-    track_eos = eos_id is not None
+    track_eos = _tracks_eos(model, eos_id)
     outs = [tok]
     decode_steps = 0
     t0 = time.perf_counter()
@@ -293,7 +319,7 @@ def generate_eager(
         logits, cache = model.decode_step(params, cache, {"tokens": tok})
         decode_steps += 1
         key = prng.fold_in(key, i)
-        nxt = _sample(logits, key, temperature, partitionable).reshape(B, 1)
+        nxt = _sample(logits, key, temperature, partitionable).reshape(tok.shape)
         if track_eos:
             finished = finished | (tok[:, 0] == eos_id)
             nxt = torch.where(finished[:, None], torch.full_like(nxt, eos_id), nxt)

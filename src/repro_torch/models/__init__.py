@@ -1,5 +1,5 @@
-"""Model families served by the port: config, layers, SSM, decoder
-blocks and the ``Model`` API (dense and ssm families in this slice)."""
+"""Model families served by the port: config, layers, SSM, MoE and MLA,
+decoder blocks and the ``Model`` API (every family of the registry)."""
 from repro_torch.models.config import ARCH_TYPES, ModelConfig
 from repro_torch.models.model import Model, ModelParams, batch_spec
 

@@ -1,5 +1,5 @@
-"""Shared neural layers: RMSNorm, RoPE, SwiGLU, GQA attention (the port
-of ``repro.models.layers``).
+"""Shared neural layers: RMSNorm, RoPE / M-RoPE, SwiGLU, GQA attention
+(the port of ``repro.models.layers``).
 
 Attention for a full sequence is the reference's statically blocked
 q-block attention (``blocked_causal_attention``): a q block of 512 keeps
@@ -8,8 +8,6 @@ the score buffer at (B, H, 512, kv_len). The hand-written flash kernel
 replaces it when ``cfg.use_pallas`` is set. Weights keep the reference's
 shapes ((d, H, hd) projections, (H, hd, d) output), so a reference
 checkpoint loads as it is; the products reshape them to matrices.
-``apply_mrope`` (M-RoPE, the vlm family) is not ported yet (ROADMAP.md
-queue 1, item 16).
 """
 from __future__ import annotations
 
@@ -64,7 +62,7 @@ def swiglu(params, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE (standard + M-RoPE)
 # ---------------------------------------------------------------------------
 
 
@@ -92,6 +90,38 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     half = x.shape[-1] // 2
     freqs = _cached_rope_frequencies(x.shape[-1], theta, x.device)  # (half,)
     ang = positions[..., None].float() * freqs  # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# (sections, device) -> the position stream of each frequency band
+_MROPE_BANDS: dict = {}
+
+
+def _mrope_bands(sections: tuple, device) -> torch.Tensor:
+    key = (tuple(sections), torch.device(device))
+    sel = _MROPE_BANDS.get(key)
+    if sel is None:
+        sel = torch.repeat_interleave(torch.arange(3), torch.tensor(sections))
+        sel = _MROPE_BANDS[key] = sel.to(device)
+    return sel
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: tuple) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE. x: (B, S, H, D); positions3: (3, B, S),
+    the temporal / height / width coordinate streams. The half-head-dim
+    frequency bands are split into ``sections`` chunks; band j rotates by
+    the stream of its chunk."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError("mrope sections must sum to head_dim/2")
+    freqs = _cached_rope_frequencies(x.shape[-1], theta, x.device)  # (half,)
+    pos_per_band = positions3.float()[_mrope_bands(sections, x.device)]  # (half, B, S)
+    ang = torch.movedim(pos_per_band, 0, -1) * freqs  # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., :half], x[..., half:]

@@ -7,7 +7,7 @@ an ``nn.ModuleList``), passed to each method as in the reference:
 
   init(key, device)                  -> params
   loss(tree, batch)                  -> (scalar, metrics)   [training]
-  forward_logits(params, batch)      -> logits (B, S, V)
+  forward_logits(params, batch)      -> logits (B, S, V[, nq])
   prefill(params, batch)             -> (last_logits, cache)
   decode_step(params, cache, batch)  -> (logits, cache)
 
@@ -32,10 +32,10 @@ from torch import nn
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (
+    VISION_EMBED_DIM,
     block_apply_decode,
     block_apply_full,
     block_init,
-    check_ported,
     check_trainable,
     embed_init,
     embed_tokens,
@@ -67,8 +67,8 @@ class ParamTree(nn.Module):
 
 
 class ModelParams(ParamTree):
-    """The top-level leaves (embed, unembed, final_norm) and
-    ``layers``, one ``ParamTree`` per layer."""
+    """The top-level leaves (embed, unembed, final_norm, the vlm's
+    vision_proj) and ``layers``, one ``ParamTree`` per layer."""
 
     def __init__(self, top: Dict[str, Any], layers):
         super().__init__(top)
@@ -84,7 +84,6 @@ class TensorSpec(NamedTuple):
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        check_ported(cfg)
         self.cfg = cfg
         # launch.serve.generate's captured decode loops, one per signature
         # (the most recently used few, launch.serve.DECODE_GRAPHS)
@@ -164,6 +163,16 @@ class Model:
         return replica_losses(params, self.cfg, batch["tokens"], batch["labels"])
 
     # --------------------------------------------------------------- forward
+    def _embed_batch(self, params, batch) -> torch.Tensor:
+        """The token embeddings, after the projected vision prefix for the
+        vlm (``batch["vision_embeds"]`` (B, tv, 1024))."""
+        cfg = self.cfg
+        h = embed_tokens(params, cfg, batch["tokens"])
+        if cfg.arch_type == "vlm":
+            vis = batch["vision_embeds"].to(h.dtype) @ params["vision_proj"]
+            h = torch.cat([vis, h], dim=1)
+        return h
+
     def _stack_full(self, params, h, pos_info, collect_cache: bool):
         caches = []
         for lp in params.layers:
@@ -175,17 +184,21 @@ class Model:
 
     @torch.no_grad()
     def forward_logits(self, params, batch) -> torch.Tensor:
-        h = embed_tokens(params, self.cfg, batch["tokens"])
+        """Logits (B, S, V[, nq]) of every text position."""
+        h = self._embed_batch(params, batch)
         pos_info = make_pos_info(self.cfg, h.shape[0], h.shape[1], h.device)
         h, _ = self._stack_full(params, h, pos_info, collect_cache=False)
+        if self.cfg.arch_type == "vlm":
+            h = h[:, self.cfg.vision_tokens:]
         return logits_from_h(params, self.cfg, h)
 
     @torch.no_grad()
     def prefill(self, params, batch):
         """Full-sequence forward; returns (last-position logits
-        (B, 1, V), cache)."""
+        (B, 1, V[, nq]), cache). The vlm's cache covers its vision prefix
+        too."""
         cfg = self.cfg
-        h = embed_tokens(params, cfg, batch["tokens"])
+        h = self._embed_batch(params, batch)
         B, S = h.shape[0], h.shape[1]
         pos_info = make_pos_info(cfg, B, S, h.device)
         h, layers = self._stack_full(params, h, pos_info, collect_cache=True)
@@ -212,15 +225,19 @@ class Model:
         T = self.cache_len(seq_len)
         L, B = cfg.num_layers, batch_size
         layers: Dict[str, Any] = {}
-        if cfg.arch_type == "ssm":
+        if cfg.arch_type != "ssm":
+            if cfg.use_mla:
+                layers["ckv"] = torch.zeros((L, B, T, cfg.kv_lora_rank), dtype=dt, device=dev)
+                layers["krope"] = torch.zeros((L, B, T, cfg.rope_head_dim), dtype=dt, device=dev)
+            else:
+                kv, hd = cfg.num_kv_heads, cfg.head_dim
+                layers["k"] = torch.zeros((L, B, T, kv, hd), dtype=dt, device=dev)
+                layers["v"] = torch.zeros((L, B, T, kv, hd), dtype=dt, device=dev)
+        if cfg.arch_type in ("ssm", "hybrid"):
             hs, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
             conv_dim = cfg.ssm_d_inner + 2 * n
             layers["state"] = torch.zeros((L, B, hs, p, n), dtype=torch.float32, device=dev)
             layers["conv"] = torch.zeros((L, B, cfg.ssm_conv - 1, conv_dim), dtype=dt, device=dev)
-        else:
-            kv, hd = cfg.num_kv_heads, cfg.head_dim
-            layers["k"] = torch.zeros((L, B, T, kv, hd), dtype=dt, device=dev)
-            layers["v"] = torch.zeros((L, B, T, kv, hd), dtype=dt, device=dev)
         cache: Dict[str, Any] = {
             "layers": layers, "next_pos": torch.zeros((B,), dtype=torch.int32, device=dev)
         }
@@ -230,9 +247,9 @@ class Model:
 
     @torch.no_grad()
     def decode_step(self, params, cache, batch):
-        """One-token decode. batch: {'tokens': (B, 1)}; returns (logits
-        (B, 1, V), cache), the cache updated in place (``next_pos``
-        included). It issues no host synchronisation, so
+        """One-token decode. batch: {'tokens': (B, 1[, nq])}; returns
+        (logits (B, 1, V[, nq]), cache), the cache updated in place
+        (``next_pos`` included). It issues no host synchronisation, so
         ``launch.serve.generate`` captures it as a CUDA graph."""
         cfg = self.cfg
         pos = cache["next_pos"]  # (B,)
@@ -261,12 +278,27 @@ def _add_replica_axis(tree):
 
 
 def batch_spec(cfg: ModelConfig, batch_size: int, seq_len: int, mode: str):
-    """``TensorSpec`` dict for ``mode`` in {'train', 'prefill', 'decode'}
-    (the dense and ssm families: token ids only)."""
-    check_ported(cfg)
+    """``TensorSpec`` dict for ``mode`` in {'train', 'prefill', 'decode'}:
+    token ids (B, S), or (B, S, nq) with codebooks; for the vlm
+    ``seq_len`` counts the vision prefix, so its text is
+    ``seq_len - vision_tokens`` ids long, and ``vision_embeds``
+    (B, tv, 1024) float32 come with it."""
+    i32 = torch.int32
+    nq = cfg.num_codebooks
     if mode in ("train", "prefill"):
-        toks = TensorSpec((batch_size, seq_len), torch.int32)
-        return {"tokens": toks, "labels": toks} if mode == "train" else {"tokens": toks}
+        if nq:
+            toks = TensorSpec((batch_size, seq_len, nq), i32)
+        elif cfg.arch_type == "vlm":
+            toks = TensorSpec((batch_size, seq_len - cfg.vision_tokens), i32)
+        else:
+            toks = TensorSpec((batch_size, seq_len), i32)
+        batch = {"tokens": toks}
+        if mode == "train":
+            batch["labels"] = toks
+        if cfg.arch_type == "vlm":
+            batch["vision_embeds"] = TensorSpec((batch_size, cfg.vision_tokens, VISION_EMBED_DIM),
+                                                torch.float32)
+        return batch
     if mode == "decode":
-        return {"tokens": TensorSpec((batch_size, 1), torch.int32)}
+        return {"tokens": TensorSpec((batch_size, 1, nq) if nq else (batch_size, 1), i32)}
     raise ValueError(mode)

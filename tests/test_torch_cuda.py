@@ -156,6 +156,11 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     (1, 100, 8, 4, 32, 0), (2, 100, 16, 2, 64, 96), (1, 384, 8, 4, 128, 96),
     (1, 7, 8, 1, 256, 0), (1, 64, 2, 1, 32, 100), (2, 384, 4, 2, 64, 100),
     (1, 100, 8, 8, 128, 0), (1, 64, 64, 1, 32, 0), (4, 512, 32, 4, 128, 0),
+    # the served families' prefills: hymba-1.5b (G 5, D 64: 12 positions x
+    # 5 heads in the f32 kernel's 64-row tile), dbrx-132b (G 6, D 128),
+    # musicgen-large (G 1, D 64), qwen2-vl-2b (G 6, S 1,536: vision + text)
+    (4, 512, 25, 5, 64, 0), (4, 512, 48, 8, 128, 0), (4, 512, 32, 32, 64, 0),
+    (2, 1536, 12, 2, 128, 0),
 ])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, B, S, H, KV, D, window):
     rng = np.random.default_rng(S + D + window)
@@ -186,6 +191,8 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, B, S, H, KV, D, window)
     # P 7, 40, 128; N 5, 200; H 64 at Q 256
     (1, 2, 32, 4, 64, 64), (1, 1, 96, 2, 40, 200), (1, 2, 130, 3, 7, 5),
     (2, 1, 256, 64, 128, 5),
+    # hymba-1.5b's prefill: N 16, one ragged state slice in the bf16 kernel
+    (4, 2, 256, 50, 64, 16),
 ])
 def test_cuda_ssd_intra_chunk_matches_plain(cuda, dtype, B, nc, Q, H, P, N):
     x, da, b, c = _ssd_inputs(np.random.default_rng(Q + H), cuda, B, nc, Q, H, P, N, dtype)
@@ -251,6 +258,118 @@ def test_cuda_serve_smoke_config_through_the_kernels(cuda, arch):
     torch.testing.assert_close(last, want, rtol=2e-4, atol=2e-4)
     gen, stats = generate(model, params, {"tokens": toks}, 4)
     assert gen.shape == (2, 4) and stats["decode_steps"] == 3
+
+
+FAMILIES = ("dbrx_132b", "deepseek_v2_236b", "hymba_1_5b", "musicgen_large", "qwen2_vl_2b")
+
+
+def _family_case(cuda, arch, b=2, s=64, **over):
+    """A smoke model of ``arch`` on the card with its weights (seed 0) and
+    a prefill batch (``s`` counts the vlm's vision prefix)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import random_batch_like
+    from repro_torch.models import Model
+    from repro_torch.models.model import batch_spec
+    from repro_torch.utils import prng
+
+    if arch == "hymba_1_5b":
+        over.setdefault("ssd_chunk", 32)
+    cfg = get_smoke_config(arch, **over)
+    model = Model(cfg)
+    params = model.init(prng.key(0), cuda)
+    batch = random_batch_like(batch_spec(cfg, b, s, "prefill"), prng.key(1), device=cuda)
+    batch["tokens"] = batch["tokens"] % cfg.vocab_size
+    return cfg, model, params, batch
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_cuda_serve_families_through_the_kernels(cuda, arch):
+    """Each served family's smoke model on the card with ``use_pallas``:
+    flash_attention (every family but MLA's, whose prefill runs the plain
+    attention, as in the reference) and ssd_intra_chunk (hybrid) launch
+    once per layer in a prefill; the logits agree with plain torch on the
+    card and with the CPU within 2e-4, and the greedy tokens equal the
+    CPU's."""
+    import dataclasses
+
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Model
+    from repro_torch.utils import prng
+
+    cfg, model, params, batch = _family_case(cuda, arch, use_pallas=True)
+    L = cfg.num_layers
+    want = {flash_attention: 0 if cfg.use_mla else L,
+            ssd_intra_chunk: L if cfg.arch_type == "hybrid" else 0}
+    before = {k: k.launches for k in want}
+    last, _ = model.prefill(params, batch)
+    assert {k: k.launches - before[k] for k in want} == want
+    plain = Model(dataclasses.replace(cfg, use_pallas=False))
+    torch.testing.assert_close(last, plain.prefill(params, batch)[0], rtol=2e-4, atol=2e-4)
+    cpu_params = model.init(prng.key(0), "cpu")
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    cpu_last, _ = model.prefill(cpu_params, cpu_batch)
+    torch.testing.assert_close(last.cpu(), cpu_last, rtol=2e-4, atol=2e-4)
+    gen, stats = generate(model, params, batch, 6)
+    cpu_gen, _ = generate(model, cpu_params, cpu_batch, 6)
+    assert torch.equal(gen.cpu(), cpu_gen) and stats["decode_steps"] == 5
+
+
+@pytest.mark.parametrize("arch,over", [("dbrx_132b", {}), ("deepseek_v2_236b", {}),
+                                       ("deepseek_v2_236b", dict(mla_absorb=True)),
+                                       ("dbrx_132b", dict(moe_groups=2, capacity_factor=0.5))])
+def test_cuda_moe_decode_captures_and_is_the_eager_decode(cuda, arch, over):
+    """The MoE decode step (routing, sort, dispatch, expert products,
+    combine) captures as a CUDA graph (a host synchronisation would fail
+    the capture) and its replay's logits and cache are bitwise the eager
+    step's, which is bitwise itself from run to run; generate's captured
+    loop gives the eager loop's tokens."""
+    from repro_torch.launch.serve import expand_cache, generate, generate_eager
+
+    cfg, model, params, batch = _family_case(cuda, arch, use_pallas=True, **over)
+    last, cache = model.prefill(params, batch)
+    tok = {"tokens": torch.argmax(last, dim=-1).to(torch.int32)}
+
+    def fresh():
+        return expand_cache(model, cache, 64 + 8)
+
+    eager = [model.decode_step(params, fresh(), tok) for _ in range(2)]
+    for a, b in zip(eager[0][1]["layers"].values(), eager[1][1]["layers"].values()):
+        assert torch.equal(a, b)
+    assert torch.equal(eager[0][0], eager[1][0])
+    static = fresh()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # warm-up outside the capture
+        model.decode_step(params, expand_cache(model, cache, 64 + 8), tok)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        logits, _ = model.decode_step(params, static, tok)
+    expand_cache(model, cache, 64 + 8, out=static)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(logits, eager[0][0])
+    for name, t in static["layers"].items():
+        assert torch.equal(t, eager[0][1]["layers"][name]), name
+    got, stats = generate(model, params, batch, 8)
+    want, wstats = generate_eager(model, params, batch, 8)
+    assert torch.equal(got, want) and stats["decode_steps"] == wstats["decode_steps"] == 7
+
+
+@pytest.mark.parametrize("arch", ["hymba_1_5b", "musicgen_large", "qwen2_vl_2b"])
+def test_cuda_family_captured_decode_tokens_equal_eager(cuda, arch):
+    """The hybrid, codebook and vision-prefix decode loops: captured
+    tokens equal the eager loop's, greedy and sampled (codebook tokens
+    (B, new, nq), with no EOS freeze)."""
+    from repro_torch.launch.serve import generate, generate_eager
+    from repro_torch.utils import prng
+
+    cfg, model, params, batch = _family_case(cuda, arch, use_pallas=True)
+    for kw in ({}, {}, dict(temperature=0.8, key=prng.key(7, device=cuda))):
+        got, stats = generate(model, params, batch, 8, **kw)
+        want, wstats = generate_eager(model, params, batch, 8, **kw)
+        assert torch.equal(got, want) and stats["decode_steps"] == wstats["decode_steps"] == 7
+    assert len(model.decode_graphs) == 2  # greedy and sampled; the second greedy call reused
 
 
 def test_cuda_mixed_sweep_matches_cpu(cuda):

@@ -51,6 +51,8 @@ def test_port_imports_without_jax():
         "import repro_torch, repro_torch.api, repro_torch.convert, repro_torch.kernels\n"
         "import repro_torch.core.simulator, repro_torch.kernels.ops, repro_torch.data\n"
         "import repro_torch.models, repro_torch.launch.serve, repro_torch.configs\n"
+        "import repro_torch.models.moe, repro_torch.models.transformer\n"
+        "from repro_torch.models.layers import apply_mrope\n"
         "import repro_torch.sweep, repro_torch.api.results, repro_torch.api.placement\n"
         "import repro_torch.graphs.spectral, repro_torch.kernels.capture\n"
         "import repro_torch.zoo, repro_torch.zoo.attacks, repro_torch.zoo.variants\n"

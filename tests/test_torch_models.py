@@ -124,9 +124,27 @@ def test_init_matches_reference(arch, weights):
 
 
 def test_unported_families_raise():
+    """The moe, hybrid, audio and vlm families build and serve (their
+    parity: tests/test_torch_moe.py, test_torch_families*.py); training
+    them is not ported yet and raises, citing its ROADMAP.md item."""
+    from repro_torch.data import random_batch_like
+    from repro_torch.models.model import batch_spec
+    from repro_torch.models.transformer import check_trainable
+
     for arch in ("dbrx_132b", "deepseek_v2_236b", "hymba_1_5b", "musicgen_large", "qwen2_vl_2b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item"):
-            Model(get_smoke_config(arch))
+        cfg = get_smoke_config(arch)
+        m = Model(cfg)
+        params = m.init(prng.key(0), "cpu")
+        batch = random_batch_like(batch_spec(cfg, 1, 32, "prefill"), device="cpu")
+        batch["tokens"] = batch["tokens"] % cfg.vocab_size
+        gen, stats = serve.generate(m, params, batch, 2)
+        nq = cfg.num_codebooks
+        assert gen.shape == (1, 2) + ((nq,) if nq else ()) and stats["decode_steps"] == 1
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 12"):
+            check_trainable(cfg)
+        with pytest.raises(NotImplementedError, match="item 12"):
+            m.loss(Model.params_tree(params), {"tokens": batch["tokens"],
+                                               "labels": batch["tokens"]})
 
 
 # ---------------------------------------------------------------------------
