@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA H100.
 
-    python3 chip_smoke.py               # the paper's 9000 steps, main path and sweep
+    python3 chip_smoke.py               # the main path at 6300 of the paper's 9000 steps
     python3 chip_smoke.py --steps 300 --sweep-steps 300 --zoo-steps 600 --figure-steps 1000 \
         --rwsgd-steps 300
                                         # a quick pass through every phase
@@ -12,7 +12,8 @@ step of phases 6 and 13 too (``launch.serve.DecodeGraph``); each captured run's
 capture is timed apart from its replays, and short eager windows of the
 same runs are timed beside them and held to them bitwise.
 
-Phases, each printed on its own line:
+Phases, each printed on its own line (phase 14 runs right after phase 2,
+while the card holds nothing of the others):
 
 1. device: nvidia-smi's name and power limit, torch's device name, and
    the build of the kernels' seven sources from ``src/repro_torch/csrc``
@@ -49,15 +50,15 @@ Phases, each printed on its own line:
    the same inputs (``library_ms`` eager, ``library_device_ms`` graph);
 3. main path: the paper's DecAFork and DecAFork+ ensembles (regular
    graph n = 100, d = 8; Z0 = 10, W = 64, B = 1024, 50 seeds, bursts of
-   5 and 6 walks at steps 2000 and 6000, decisions from step 1000; 9000
-   steps unless ``--steps`` says otherwise) through
+   5 and 6 walks at steps 2000 and 6000, decisions from step 1000; 6300
+   of the paper's 9000 steps unless ``--steps`` says otherwise) through
    ``repro_torch.api.Experiment`` on ``cuda``, captured: ms per round of
    the replays, trajectory-rounds/s, capture seconds; the captured
    graph must hold one whole_round node (read from the graph), its
    launches must equal the rounds run plus the capture's warm-up round,
-   and Z_t must survive near Z0. Then each ensemble's first 200 rounds
+   and Z_t must survive near Z0. Then each ensemble's first 100 rounds
    through the eager loop (``run_rounds``), timed and held bitwise to
-   the captured run, and a 50-round torch.profiler window of the
+   the captured run, and a 20-round torch.profiler window of the
    captured round: the device's busy share, its kernels per round, and
    its whole_round launches, which must equal the rounds replayed and
    the wrapper counter's growth (a window from which the profiler drops
@@ -72,7 +73,7 @@ Phases, each printed on its own line:
    with the analytic survival (no kernel),
    200 steps, 4 seeds, cuda against the CPU: integers bitwise,
    theta_mean within 1e-6. Then captured against eager at full width
-   (200 steps, 50 seeds, decisions from step 50, churny failures) for a
+   (150 steps, 50 seeds, decisions from step 50, churny failures) for a
    fused group (DecAFork+), MissingPerson and auto_eps: outputs, final
    carry and theta_mean bitwise. Last, 8 captured rounds of each unfused
    path (round_update, theta_sums, auto_eps, MissingPerson) under
@@ -102,8 +103,8 @@ Phases, each printed on its own line:
 7. sweep: Fig. 1's three curves (MissingPerson eps_mp 400, DecAFork eps
    2.0, DecAFork+) and Fig. 5's DecAFork eps grid (1.8, 2.0, 2.25, 2.5)
    as one ``Experiment(scenarios=...).sweep(seeds=50)`` on cuda, in the
-   main path's configuration (9000 steps unless ``--sweep-steps`` says
-   otherwise): three groups (DecAFork 200 rows, DecAFork+ 50,
+   main path's configuration (6100 of its 9000 steps unless
+   ``--sweep-steps`` says otherwise): three groups (DecAFork 200 rows, DecAFork+ 50,
    MissingPerson 50), each captured and timed as in phase 3 (ms per
    round, trajectory-rounds/s, the ratio to phase 3's DecAFork ensemble,
    capture seconds, an eager window held bitwise to it). The two
@@ -121,7 +122,7 @@ Phases, each printed on its own line:
    Z0 10, eps 3.0 / 7.57, W 64, B 1024, decisions from step 1000; the
    defenses uniform / jump / biased / bloom against none / mobile Pac-Man
    (hop 0.5) / two Pac-Men (0, 32) / an edge cut at 32, every attack at
-   step 2166; 16 seeds; 4500 steps there, cut to 2500 unless
+   step 2166; 16 seeds; 4500 steps there, cut to 2200 unless
    ``--zoo-steps`` says otherwise)
    through the port's ``figures.fig9_zoo`` experiment, one sweep on cuda:
    each group's decision and reason, captured ms per round,
@@ -138,7 +139,7 @@ Phases, each printed on its own line:
 9. figures: the port's drivers of Figs. 2, 3, 4, 6 and 7,
    ``theory_bounds`` and ``auto_eps`` (``repro_torch.figures``) on cuda at
    their reduced setting, cut to ``--figure-steps`` rounds (default
-   2100); each row's CSV is printed and must be finite, and each kernel's
+   2040); each row's CSV is printed and must be finite, and each kernel's
    launches must equal one per round of the groups whose path it is
    (whole_round in the fused groups, round_update in unfused DecAFork
    groups, theta_sums in ``auto_eps``'s auto runs) plus one warm-up round
@@ -154,8 +155,8 @@ Phases, each printed on its own line:
    by local AdamW steps (``optim.RwSgdPayload``). (a) The paper's
    training path at full width: ``examples/decentralized_training.py``'s
    defaults (regular graph n 64, d 8; DecAFork Z0 6, W 16, eps 1.2,
-   decisions from step 400, a burst of 3 walks at step 900, 1400 steps
-   unless ``--rwsgd-steps`` says otherwise; ``adamw(3e-3)``, local batch
+   decisions from step 400, a burst of 3 walks at step 900; 1400 steps
+   there, cut to 1000 unless ``--rwsgd-steps`` says otherwise; ``adamw(3e-3)``, local batch
    2 x 32 tokens) with paper-rwsgd at its published width and depth (4
    layers, d 256, vocabulary 4096; 6,031,616 parameters a replica), 4
    seeds (64 replicas with their AdamW moments), captured: ms per round,
@@ -163,9 +164,9 @@ Phases, each printed on its own line:
    and init seconds, peak device memory; whole_round's launches must
    equal the rounds plus the capture's warm-up round (read from the
    graph), Z_t must survive the burst and the loss fall (the last 100
-   rounds' mean under the first 100's). The first 50 rounds through the
+   rounds' mean under the first 100's). The first 25 rounds through the
    eager loop must be bitwise the captured run (integers, losses), and a
-   captured 50-round run, run twice, bitwise the eager loop and itself
+   captured 25-round run, run twice, bitwise the eager loop and itself
    (outputs and final replicas); 10 captured rounds under torch.profiler
    give the busy share and the kernels with the most device time. (b)
    The smoke config, 2 seeds, 60 rounds, decisions from step 20 and a
@@ -177,7 +178,8 @@ Phases, each printed on its own line:
    of two implementations drift further apart over 60 rounds: Adam's
    first steps follow the sign of the gradient; the drift is printed).
    (c) Fig. 8's driver at its ``BENCH_FULL``
-   scale (900 steps, 4 seeds, 9 scenarios in 3 groups): its rows printed,
+   scale (4 seeds, 9 scenarios in 3 groups; 300 of its 900 steps, its
+   decisions and failures at a third and a half of them): its rows printed,
    whole_round's launches counted as in phase 9, every DecAFork /
    DecAFork+ row still training at the end, at most 3 new cache slots.
    Phase 2 holds whole_round bitwise to its plain version at these
@@ -187,7 +189,7 @@ Phases, each printed on its own line:
    ensemble through ``Plan.ensemble_segmented(50, segment_steps=steps/9,
    store=ResultStore(chiprun_out/durable))`` in a spawned child process,
    which the parent SIGKILLs once the store holds an intact snapshot at
-   4/9 of the run (4,000 of 9,000 steps); the parent then runs the same
+   4/9 of the run (2,800 of 6,300 steps); the parent then runs the same
    line, which must resume from the latest intact snapshot, capture no
    graph (phase 3's slot serves it), launch whole_round once per round it
    replays (read from the graph) and end bitwise phase 3's straight
@@ -213,29 +215,50 @@ Phases, each printed on its own line:
    build_protocol``: DecAFork+ Z0 16, eps 4.0 / 11.0, W 64, B 512, max
    degree 16) at its n 131,072 on a Cayley graph of Z_n of degree 16
    (offsets drawn from the seed: the port's generators fill a dense n x n
-   adjacency), over NCCL at world size 1 (a ``FileStore``), 2,000 rounds:
-   ms per round over the last 1,950 (host clock ending in a synchronize),
+   adjacency), over NCCL at world size 1 (a ``FileStore``), 500 rounds:
+   ms per round over the last 450 (host clock ending in a synchronize),
    Z's range, peak device memory, the node tables' bytes, and 10 rounds
    under torch.profiler (kernels per round, busy share); the state after
    50 rounds must be bitwise the same step on the CPU. (b) Two spawned
    ranks over gloo on CUDA tensors (NCCL refuses two ranks on one
    device), a 16-regular Cayley graph of n 4,096, random node and link
-   masks, 300 rounds: bitwise world size 1 on the same inputs;
+   masks, 150 rounds: bitwise world size 1 on the same inputs;
 13. families: phase 6's serving, measurements and gates for the moe,
    hybrid, audio and vlm families at their published widths, with
    ``use_pallas=True`` and weights from ``Model.init`` (seed 0), bf16,
    batch 4, 32 new tokens: hymba-1.5b (prompt 512; flash_attention and
    ssd_intra_chunk), musicgen-large (prompt 512 x 4 codebooks), qwen2-vl-2b
    (512 text tokens after its 1,024-token vision prefix, M-RoPE) at their
-   published depths, and dbrx-132b and deepseek-v2-236b (MLA) cut to 2
-   layers (their 40 / 60 layers of bf16 weights do not fit the card's 80
+   published depths, and dbrx-132b and deepseek-v2-236b (MLA) cut to 1
+   layer (their 40 / 60 layers of bf16 weights do not fit the card's 80
    GB). Each prefill must launch its kernels once per layer (deepseek-v2's
    none: its MLA prefill runs the plain attention, as in the reference, so
    it has no float32 kernel gate to run); captured decode tokens equal
    the eager loop's (the MoE step, routing and dispatch included, captured
    whole). Then each family's smoke config through ``generate`` on cuda
    and, with the same weights, on the CPU: prefill logits within 2e-4,
-   greedy tokens equal up to a near tie.
+   greedy tokens equal up to a near tie;
+14. train: ``repro_torch.launch.train.make_train_step`` with AdamW
+   (``cosine_schedule(3e-4)``), ``adjust_config`` for ``train_4k``
+   (remat on), ``use_pallas=False`` (neither model kernel has a
+   backward, so no kernel of the port may launch in this phase), bf16
+   weights from ``Model.init`` (seed 0), batches from ``make_markov_task``.
+   (a) hymba-1.5b at its published width and depth, batch 4 x 1,024, 2
+   microbatches, 30 steps: 3 eager (host-bound), then the donated step
+   captured as a CUDA graph and replayed (its first replay's loss bitwise
+   an eager step's from a copy of the state); (b) dbrx-132b at its published width, 1 of its
+   40 layers (132 B parameters at full depth), batch 2 x 512, 10 steps,
+   the update written in place (``donate=True``; its data over 8,192 of
+   its token ids). Each: init s, ms per step, tokens/s, peak memory, the
+   last step under torch.profiler (kernels per step, busy share), the
+   first and last 5 losses (finite, and falling), the MoE's aux loss per
+   step, and the first microbatch's loss with remat on against off
+   (bitwise). (c) Each family's smoke config in float32 (granite-8b,
+   mamba2-1.3b, hymba-1.5b, dbrx-132b, deepseek-v2-236b, musicgen-large,
+   qwen2-vl-2b): one step (SGD) on cuda and on the CPU from the same
+   weights: loss within 1e-5 relative, parameters within rtol 2e-4 / atol
+   2e-5, the MoE's expert ids equal wherever the router's top-k margin
+   exceeds 1e-6.
 
 Before the last line it prints the card's name and power limit, then one
 JSON object with every kernel's launches, error and times; the last line
@@ -247,7 +270,9 @@ non-zero and prints no result. Details go to
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -285,25 +310,55 @@ SERVE = (  # arch, batch, prompt, new tokens
 # phase 13: the moe, hybrid, audio and vlm families at their published
 # widths (arch, batch, prompt tokens, new tokens, layers: None is the
 # published depth); the MoE pair's 40 / 60 layers of bf16 weights (about
-# 264 / 472 GB) do not fit the card's 80 GB, so they run 2; qwen2-vl-2b's
+# 264 / 472 GB) do not fit the card's 80 GB, so they run 1 (2 until phase
+# 14 came); qwen2-vl-2b's
 # prompt is 512 text tokens after its 1,024-token vision prefix
 FAMILIES = (
     ("hymba_1_5b", 4, 512, 32, None),
     ("musicgen_large", 4, 512, 32, None),
     ("qwen2_vl_2b", 4, 512, 32, None),
-    ("dbrx_132b", 4, 512, 32, 2),
-    ("deepseek_v2_236b", 4, 512, 32, 2),
+    ("dbrx_132b", 4, 512, 32, 1),
+    ("deepseek_v2_236b", 4, 512, 32, 1),
 )
 FAMILY_SMOKE = (2, 64, 8)  # phase 13's smoke configs, cuda vs CPU: batch, prompt, new tokens
 CPU_LOGIT_TOL = 2e-4  # their prefill logits, cuda vs CPU (the CPU parity tests' tolerance)
+# phase 14: training (launch/train.py). (a) hymba-1.5b at its published
+# width and depth; (b) dbrx-132b at its published width, 1 of its 40 layers
+# (132 B parameters at full depth; 4.49 B at one layer, about 54 GB with
+# bf16 gradients and float32 AdamW moments, updated in place), its data
+# drawn over 8,192 of its 100,352 token ids (the Markov task's (V, V)
+# logits at the whole vocabulary would take 40 GB)
+TRAIN_RUNS = (  # dbrx first: it needs the most memory
+    ("dbrx", dict(arch="dbrx_132b", layers=1, batch=2, seq=512, steps=10, microbatches=1,
+                  warmup=3, donate=True, data_vocab=8192)),
+    ("hymba", dict(arch="hymba_1_5b", layers=None, batch=4, seq=1024, steps=30, microbatches=2,
+                   warmup=10, donate=True, capture=True)),
+)
+# (a)'s eager steps before its step is captured (its eager step is
+# host-bound: ~46,000 launches, busy ~19 %; the replays are not)
+TRAIN_EAGER_STEPS = 3
+TRAIN_FAMILIES = ("granite_8b", "mamba2_1_3b", "hymba_1_5b", "dbrx_132b", "deepseek_v2_236b",
+                  "musicgen_large", "qwen2_vl_2b")  # (c): each family's smoke config
+TRAIN_SMOKE = (4, 64)  # (c)'s batch and sequence (the vlm's counts its vision prefix)
+TRAIN_LOSS_RTOL = 1e-5  # (c): loss, cuda vs CPU, relative
+TRAIN_PARAM_TOL = (2e-4, 2e-5)  # (c): updated parameters (the reference's microbatch tolerance)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 PAPER = dict(n=100, degree=8, z0=10, max_walks=64, rt_bins=1024, protocol_start=1000,
              bursts=(2000, 6000), burst_sizes=(5, 6), steps=9000, seeds=50)
-MAIN_STEPS = 9000  # the default main-path length: the paper's
-SWEEP_STEPS = 9000  # the default sweep length: the paper's
-EAGER_WINDOW = 200  # eager rounds timed beside each captured run (phases 3 and 7)
-PROFILE_ROUNDS = 50  # captured rounds under the profiler (phase 3)
+# the default main-path length: the paper's 9000, cut to 6300 when phase 14
+# came to hold the whole run under the tool's 1,200 s (both bursts, at 2000
+# and 6000, still fire; phase 11 resumes it from 2800, 4/9 of it)
+MAIN_STEPS = 6300
+# the default sweep length: the paper's 9000, cut to 6100 when phase 14
+# came to hold the whole run under the tool's 1,200 s (both bursts, at 2000
+# and 6000, still fire)
+SWEEP_STEPS = 6100
+# eager rounds timed beside each captured run (phases 3 and 7), and
+# captured rounds under the profiler (phase 3): 200 and 50 until phase 14
+# came
+EAGER_WINDOW = 100
+PROFILE_ROUNDS = 20
 ALGS = {"decafork": dict(eps=2.0), "decafork+": dict(eps=3.0, eps2=7.57)}
 EPS_MP = 400.0  # MissingPerson's timeout in benchmarks/common.py
 EPS_GRID = (1.8, 2.0, 2.25, 2.5)  # Fig. 5's DecAFork grid (2.0 is Fig. 1's curve)
@@ -315,18 +370,19 @@ CHURN = dict(burst_times=(60, 140), burst_sizes=(5, 6), p_fail=0.002,
              node_crash_times=(50,), node_crash_ids=(3,))
 INT_FIELDS = ("z", "forks", "terms", "failures", "fork_parent", "terminated")
 # phase 9's default rounds, cut from the drivers' reduced 4500 (to 2400,
-# then to 2100 when phase 13 came) to hold the whole run under the tool's
-# 1,200 s: the first burst (1500), Fig. 3's Byzantine phase (1800) and
-# Fig. 7's crash and Pac-Man (2033) still fire, the second burst (3000)
-# does not
-FIGURE_STEPS = 2100
+# to 2100 when phase 13 came, then to 2040 beside phase 14) to hold the
+# whole run under the tool's 1,200 s: the first burst (1500), Fig. 3's
+# Byzantine phase (1800) and Fig. 7's crash and Pac-Man (2033) still fire,
+# the second burst (3000) does not
+FIGURE_STEPS = 2040
 Z_BAND = (PAPER["z0"] / 2, 2 * PAPER["z0"])  # mean Z after the start must lie here
 # phase 8: Fig. 9's grid as benchmarks/fig9_zoo.py sets it under BENCH_FULL=1
 ZOO = dict(n=64, steps=4500, seeds=16, protocol_start=1000, parity_steps=200, parity_seeds=4)
 # phase 8's default rounds, cut from Fig. 9's 4500 (to 3000 beside phase
-# 10, then to 2500 beside phase 13) to hold the whole run under the tool's
-# 1,200 s: the attacks (2166) still fire, 334 rounds before the end
-ZOO_STEPS = 2500
+# 10, to 2500 beside phase 13, then to 2200 beside phase 14) to hold the
+# whole run under the tool's 1,200 s: the attacks (2166) still fire, 34
+# rounds before the end
+ZOO_STEPS = 2200
 # phase 9: the port's figure drivers (name, module, the events of their
 # parity window: decisions, bursts and each driver's own attack moved into
 # its first FIGURE_PARITY rounds); Figs. 1 and 5 are phase 7
@@ -351,7 +407,7 @@ CPU_THREADS = 4  # torch threads of the process that runs the parity's CPU side
 # its smoke config; 4 seeds, captured
 RWSGD = dict(n=64, degree=8, z0=6, max_walks=16, eps=1.2, protocol_start=400, rt_bins=512,
              burst_at=900, burst_size=3, steps=1400, seeds=4, lr=3e-3, local_batch=2, seq=32)
-RWSGD_EAGER = 50  # eager rounds held to the captured run (phase 10 a)
+RWSGD_EAGER = 25  # eager rounds held to the captured run (phase 10 a; 50 until phase 14)
 RWSGD_PROFILE = 10  # captured rounds under torch.profiler (phase 10 a)
 # phase 10 b: the smoke config on cuda and on the CPU, decisions and the
 # burst inside the window so forks copy replicas in it
@@ -359,7 +415,13 @@ RWSGD_PARITY = dict(steps=60, seeds=2, protocol_start=20, burst_at=40, leg=10)
 # mean_loss per round, cuda vs CPU over a leg (tests/test_torch_payload.py's
 # bound, there over a 20-round window)
 RWSGD_LOSS_BOUND = 1e-3
-FIG8_FULL = dict(steps=900, seeds=4)  # benchmarks/fig8_learning.py under BENCH_FULL=1
+# benchmarks/fig8_learning.py under BENCH_FULL=1 (900 steps), cut to 300
+# when phase 14 came
+FIG8_FULL = dict(steps=300, seeds=4)
+# phase 10 (a)'s default rounds: the example's 1400, cut to 1000 when phase
+# 14 came (the burst at 900 still fires; the loss gate compares the first
+# and last 100 rounds)
+RWSGD_STEPS = 1000
 # whole_round's shapes on phase 10's paths (batch, n, degree, W, bins):
 # the training run's 4 seeds, Fig. 8's groups (3 scenarios x 4 seeds)
 PAYLOAD_SHAPES = ((4, 64, 8, 16, 512), (12, 48, 6, 12, 256))
@@ -371,8 +433,8 @@ CPU_TIMEOUT_S = 600  # the longest phases 8 and 9 wait for that process's result
 # card against world size 1 on a 16-regular Cayley graph of n 4,096 with
 # random masks
 SHARDED = dict(n=131072, degree=16, z0=16, max_walks=64, eps=4.0, eps2=11.0, rt_bins=512,
-               rounds=2000, cpu_rounds=50)
-SHARDED_RANKS = dict(n=4096, degree=16, rounds=300, world=2)
+               rounds=500, cpu_rounds=50)  # rounds: 2000 until phase 14 came
+SHARDED_RANKS = dict(n=4096, degree=16, rounds=150, world=2)  # rounds: 300 until phase 14
 SHARDED_PROFILE = 10  # eager rounds of (a) under torch.profiler
 
 
@@ -1184,6 +1246,335 @@ def families_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: training every family (launch/train.py)
+# ---------------------------------------------------------------------------
+
+
+def train_run(arch, dev, *, layers, batch, seq, steps, microbatches, warmup, donate,
+              capture=False, data_vocab=None):
+    """Phase 14 (a) / (b): ``make_train_step`` with AdamW
+    (``cosine_schedule(3e-4, warmup, steps)``) on ``arch`` at its
+    published width (``layers`` None: its depth too), ``adjust_config``
+    for ``train_4k`` (remat on), bf16 weights from ``Model.init`` (seed
+    0), batches from ``make_markov_task`` (over ``data_vocab`` tokens, the
+    model's vocabulary unless given) drawn before the run. The first
+    microbatch's loss with remat on against off, bitwise; then ``steps``
+    steps, the last under torch.profiler. Eager steps are timed one by
+    one; with ``capture`` (and ``donate``: the state stays at its
+    addresses) the first ``TRAIN_EAGER_STEPS`` run eagerly, the step is
+    then captured as a CUDA graph and replayed for the rest (its first
+    replay held to an eager step from a copy of the state: the loss
+    bitwise)."""
+    import dataclasses
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES, adjust_config
+    from repro_torch.data import make_markov_task, sample_batch
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_leaves, tree_replace
+
+    over = {} if layers is None else dict(num_layers=layers)
+    cfg = adjust_config(get_config(arch, **over), SHAPES["train_4k"])
+    model = Model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = Model.params_tree(model.init(prng.key(0, device=dev), dev))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    t0 = time.perf_counter()
+    task = make_markov_task(data_vocab or cfg.vocab_size, device=dev)
+    key = prng.key(1, device=dev)
+    data = [sample_batch(task, prng.fold_in(key, i), batch, seq) for i in range(steps)]
+    del task
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+
+    # the first microbatch's loss and gradients with remat on and off
+    t0 = time.perf_counter()
+    first = {k: v[:batch // microbatches] for k, v in data[0].items()}
+    remat = {}
+    for on in (True, False):
+        m = Model(dataclasses.replace(cfg, remat=on))
+        leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
+        loss, _ = m.loss(tree_replace(params, leaves), first)
+        grads = torch.autograd.grad(loss, leaves)
+        remat[on] = (loss.detach(), grads)
+        del leaves, loss
+    if not torch.equal(remat[True][0], remat[False][0]):
+        raise AssertionError(f"{arch}: the loss with remat {float(remat[True][0])} is not "
+                             f"bitwise the loss without {float(remat[False][0])}")
+    remat_grad_err = max(float((a.float() - b.float()).abs().max())
+                         for a, b in zip(remat[True][1], remat[False][1]))
+    remat_loss = float(remat[True][0])
+    del remat, grads
+    remat_s = time.perf_counter() - t0
+
+    opt = adamw(cosine_schedule(3e-4, warmup=warmup, total=steps))
+    opt_state = opt.init(params)
+    step = make_train_step(model, opt, microbatches=microbatches, donate=donate)
+    batch_buf = {k: v.clone() for k, v in data[0].items()}  # the step's input, at one address
+
+    def feed(i):
+        for k, v in batch_buf.items():
+            v.copy_(data[i][k])
+
+    def record(met):
+        losses.append(met["loss"].clone())
+        auxes.append(met["aux"].clone())
+
+    # eager steps: all but the last without a capture; with one, its
+    # warm-up, on a side stream (torch.cuda.graph's recipe)
+    losses, auxes, eager_ms = [], [], []
+    n_eager = TRAIN_EAGER_STEPS if capture else steps - 1
+    stream = torch.cuda.Stream() if capture else torch.cuda.current_stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for i in range(n_eager):
+            feed(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, met = step(params, opt_state, batch_buf)
+            torch.cuda.synchronize()
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+            record(met)
+    torch.cuda.current_stream().wait_stream(stream)
+    eager_ms_step = sum(eager_ms[1:]) / len(eager_ms[1:])  # the first warms the allocator
+    capture_s = captured_vs_eager = None
+    if capture:
+        # the donated step updates params and opt_state in place, so each
+        # replay is the next step
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            _, _, met = step(params, opt_state, batch_buf)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        # the captured step against an eager step from a copy of the same state
+        feed(n_eager)
+        state = (params, opt_state)
+        copy = tree_replace(state, [x.clone() for x in tree_leaves(state)])
+        _, _, e_met = step(*copy, batch_buf)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(e_met["loss"], met["loss"]):
+            raise AssertionError(f"{arch}: the captured step's loss {float(met['loss'])} is not "
+                                 f"the eager step's {float(e_met['loss'])}")
+        captured_vs_eager = dict(loss="bitwise", param_max_abs_diff=max(
+            float((a.float() - b.float()).abs().max())
+            for a, b in zip(tree_leaves(copy[0]), tree_leaves(params))))
+        del copy, e_met
+        record(met)
+        t1 = time.perf_counter()
+        for i in range(n_eager + 1, steps - 1):
+            feed(i)
+            graph.replay()
+            record(met)
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - t1) * 1e3 / (steps - 2 - n_eager)
+    else:
+        ms_step = eager_ms_step
+    t0 = time.perf_counter()
+    feed(steps - 1)  # the last step under the profiler
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the device's kernels only
+        p0 = time.perf_counter()
+        if capture:
+            graph.replay()
+        else:
+            params, opt_state, met = step(params, opt_state, batch_buf)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - p0) * 1e6
+    record(met)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    auxes = [float(x) for x in auxes]
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise AssertionError("the profiler saw no device kernel")
+    prof_res = _busy(events, wall_us, 1)
+    profile_s = time.perf_counter() - t0
+    head, tail = losses[:5], losses[-5:]
+    if not all(map(math.isfinite, losses + auxes)):
+        raise AssertionError(f"{arch}: a loss is not finite: {losses}")
+    if not sum(tail) / len(tail) < sum(head) / len(head):
+        raise AssertionError(f"{arch}: the loss did not fall: {head} -> {tail}")
+    tokens = batch * seq
+    del params, opt_state, data, batch_buf, met
+    if capture:
+        del graph
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, layers=cfg.num_layers,
+                published_layers=get_config(arch).num_layers, params=n_params,
+                batch=batch, seq=seq, steps=steps, microbatches=microbatches, remat=cfg.remat,
+                donate=donate, data_vocab=data_vocab or cfg.vocab_size, init_s=init_s,
+                data_s=data_s, ms_per_step=ms_step, captured=capture, capture_s=capture_s,
+                eager_ms_per_step=eager_ms_step, eager_step_ms=eager_ms,
+                captured_vs_eager=captured_vs_eager,
+                tokens_per_s=tokens * 1e3 / ms_step, peak_memory_gib=peak / 2**30,
+                resident_before_gib=base / 2**30, remat_s=remat_s, profile_s=profile_s,
+                first_losses=head, last_losses=tail, aux=auxes if cfg.arch_type == "moe" else None,
+                remat_first_loss=remat_loss, remat_loss_bitwise=True,
+                remat_grad_max_abs_diff=remat_grad_err, profile=prof_res)
+
+
+class RoutingLog:
+    """Records the router's decisions (``moe.moe_routing``'s expert ids,
+    slots and probabilities) of every MoE layer call while active."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self._orig = [], moe.moe_routing
+
+        def record(params, xf, cfg, C):
+            out = self._orig(params, xf, cfg, C)
+            self.calls.append(tuple(t.detach().cpu() for t in out[1:]))
+            return out
+
+        moe.moe_routing = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.moe_routing = self._orig
+
+
+def same_routing(got, want, k, what, margin=1e-6):
+    """Routing on two devices: expert ids equal for every token whose k-th
+    and (k+1)-th router probabilities differ by more than ``margin``
+    (nearer ties may fall either way), slots equal in each group without
+    such a tie. Returns the near ties."""
+    import torch
+
+    ties = 0
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} router calls against {len(want)}")
+    for (ids, slot, probs), (w_ids, w_slot, w_probs) in zip(got, want):
+        top = torch.topk(w_probs, min(k + 1, w_probs.shape[-1]), dim=-1).values
+        clear = (top[..., k - 1] - top[..., k] > margin) if top.shape[-1] > k else \
+            torch.ones(top.shape[:-1], dtype=torch.bool)
+        ties += int((~clear).sum())
+        if not torch.equal(ids[clear], w_ids[clear]):
+            raise AssertionError(f"{what}: expert ids differ away from a near tie")
+        groups = clear.all(dim=-1)
+        if not torch.equal(slot[groups], w_slot[groups]):
+            raise AssertionError(f"{what}: slots differ in a group without a near tie")
+    return ties
+
+
+def train_cpu_parity(arch, dev):
+    """Phase 14 (c): one ``make_train_step`` (SGD 0.1) of a family's
+    smoke config in float32 from the same weights (``Model.init`` seed 0
+    on the CPU, copied to the card) and a numpy-seeded batch, on cuda and
+    on the CPU: loss within ``TRAIN_LOSS_RTOL`` relative, every updated
+    parameter within ``TRAIN_PARAM_TOL`` (rtol, atol), MoE routing as
+    :func:`same_routing` holds it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import sgd
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    b, s = TRAIN_SMOKE
+    cfg = get_smoke_config(arch)
+    model = Model(cfg)
+    cpu_params = Model.params_tree(model.init(prng.key(0), "cpu"))
+    batch = family_batch(cfg, b, s - (cfg.vision_tokens if cfg.arch_type == "vlm" else 0), 3,
+                         "cpu")
+    rng = np.random.default_rng(4)
+    batch["labels"] = torch.as_tensor(rng.integers(0, cfg.vocab_size, batch["tokens"].shape),
+                                      dtype=torch.int32)
+    runs = {}
+    for where in ("cuda", "cpu"):
+        params = tree_map(lambda x: x.to(dev if where == "cuda" else "cpu"), cpu_params)
+        data = {k: v.to(params["embed"].device) for k, v in batch.items()}
+        with RoutingLog() as log_:
+            new, _, met = make_train_step(model, sgd(0.1))(params, sgd(0.1).init(params), data)
+        runs[where] = ([x.cpu() for x in tree_leaves(new)],
+                       {k: float(v) for k, v in met.items()}, log_.calls)
+    (got, gmet, groute), (want, wmet, wroute) = runs["cuda"], runs["cpu"]
+    loss_err = abs(gmet["loss"] - wmet["loss"]) / abs(wmet["loss"])
+    if loss_err > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{cfg.name}: loss {gmet['loss']} on cuda, {wmet['loss']} on the CPU")
+    rtol, atol = TRAIN_PARAM_TOL
+    err = 0.0
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=rtol, atol=atol)
+        err = max(err, float((a - w).abs().max()))
+    ties = same_routing(groute, wroute, cfg.moe_top_k, cfg.name) if cfg.arch_type == "moe" else None
+    return dict(arch=cfg.name, batch=b, seq=s, loss=wmet["loss"], aux=wmet["aux"],
+                loss_rel_err=loss_err, param_max_abs_err=err, tol=dict(
+                    loss_rtol=TRAIN_LOSS_RTOL, rtol=rtol, atol=atol),
+                router_calls=len(wroute) if ties is not None else None, near_ties=ties)
+
+
+def train_phase(dev):
+    """Phase 14: (a) hymba-1.5b whole, (b) dbrx-132b at one layer, (c)
+    each family's smoke config cuda against the CPU. Training runs
+    ``use_pallas=False`` (no model kernel has a backward), so no kernel of
+    the port may launch here."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KERNELS
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("train", resident_gib=f"{torch.cuda.memory_allocated() / 2**30:.2f}")
+    before = {k.__name__: k.launches for k in KERNELS}
+    res = {}
+    for label, kw in TRAIN_RUNS:
+        arch = kw["arch"]
+        if kw["layers"] is not None:
+            log("train", arch=arch, cut=f"{kw['layers']} of {get_config(arch).num_layers} layers; "
+                                        "every width uncut")
+        r = res[label] = train_run(dev=dev, **kw)
+        log("train", run=label, arch=r["arch"], params=r["params"], layers=r["layers"],
+            batch=f"{r['batch']}x{r['seq']}", microbatches=r["microbatches"],
+            init_s=f"{r['init_s']:.2f}", data_s=f"{r['data_s']:.2f}",
+            ms_per_step=f"{r['ms_per_step']:.1f}", captured=r["captured"],
+            eager_ms_per_step=f"{r['eager_ms_per_step']:.1f}", capture_s=r["capture_s"],
+            captured_vs_eager=r["captured_vs_eager"], tokens_per_s=f"{r['tokens_per_s']:.0f}",
+            peak_gib=f"{r['peak_memory_gib']:.2f}", before_gib=f"{r['resident_before_gib']:.2f}",
+            remat_s=f"{r['remat_s']:.1f}", profile_s=f"{r['profile_s']:.1f}",
+            kernels_per_step=f"{r['profile']['kernels_per_step']:.0f}",
+            busy=f"{r['profile']['busy_share']:.3f}", first_losses=r["first_losses"],
+            last_losses=r["last_losses"], aux=r["aux"],
+            remat="first loss bitwise remat off", remat_grad_diff=r["remat_grad_max_abs_diff"])
+    res["cpu_parity"] = {}
+    for arch in TRAIN_FAMILIES:
+        t0 = time.perf_counter()
+        r = res["cpu_parity"][arch] = train_cpu_parity(arch, dev)
+        r["s"] = time.perf_counter() - t0
+        log("train", smoke=r["arch"], s=f"{r['s']:.1f}",
+            loss_rel_err=f"{r['loss_rel_err']:.2e}<={TRAIN_LOSS_RTOL}",
+            param_max_abs_err=f"{r['param_max_abs_err']:.2e}", near_ties=r["near_ties"])
+    grew = {k.__name__: k.launches - before[k.__name__] for k in KERNELS}
+    if any(grew.values()):
+        raise AssertionError(f"training launched a model kernel: {grew}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("train", resident_after_gib=f"{torch.cuda.memory_allocated() / 2**30:.2f}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phases 3-5: the port's entry points
 # ---------------------------------------------------------------------------
 
@@ -1600,7 +1991,7 @@ def estimator_modes(graph, counts):
 
 
 def captured_vs_eager(graph):
-    """At full width for 200 steps, with decisions from step 50 under the
+    """At full width for 150 steps, with decisions from step 50 under the
     CHURN failures: a captured run (``RoundRunner``) equals the eager loop
     (``run_rounds``) bitwise in its integer outputs, its final carry and
     theta_mean, for a fused group (DecAFork+), MissingPerson and
@@ -1612,7 +2003,7 @@ def captured_vs_eager(graph):
     from repro_torch.utils import prng
     from repro_torch.utils.tree import tree_leaves
 
-    steps, seeds = 200, PAPER["seeds"]
+    steps, seeds = 150, PAPER["seeds"]  # every CHURN event (the last at 140) fires
     kw = dict(protocol_start=50, failures=CHURN)
     res = {}
     for label, exp in (
@@ -1964,7 +2355,8 @@ def cpu_runs(what):
 def start_cpu_runs():
     """One spawned process (it has its own executable cache and no CUDA
     context) that computes :func:`cpu_runs` for phase 8, then phases 9 and
-    10, while the card runs phases 7-10: (pool, {what: pending result});
+    10, while the card runs phases 14 and 3-10: (pool, {what: pending
+    result});
     the caller terminates the pool."""
     import multiprocessing
 
@@ -3058,7 +3450,7 @@ def main() -> int:
     ap.add_argument("--figure-steps", type=int, default=FIGURE_STEPS,
                     help=f"phase 9's rounds per driver (default {FIGURE_STEPS}; the drivers' "
                          "reduced setting runs 4500)")
-    ap.add_argument("--rwsgd-steps", type=int, default=RWSGD["steps"],
+    ap.add_argument("--rwsgd-steps", type=int, default=RWSGD_STEPS,
                     help=f"phase 10's rounds at full width (default {RWSGD['steps']}, the "
                          "example's)")
     args = ap.parse_args()
@@ -3086,6 +3478,8 @@ def main() -> int:
         now = time.perf_counter()
         phase_s[phase] = now - t_phase[0]
         t_phase[0] = now
+        log("time", done=repr(phase), s=f"{phase_s[phase]:.1f}",
+            total_s=f"{sum(phase_s.values()):.1f}")
 
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
@@ -3103,42 +3497,47 @@ def main() -> int:
     lap("1 device and build")
     rows = check_kernels(rng, graph, "cuda") + check_model_kernels(rng, "cuda")
     lap("2 kernels")
-    by_name = {r["name"]: r for r in rows}
-
-    if args.steps < PAPER["steps"]:
-        fired = [b for b in PAPER["bursts"] if b < args.steps]
-        log("main", cut=f"steps {args.steps} of the paper's {PAPER['steps']}; bursts at "
-                        f"{fired} fire; n, W, B and seeds uncut")
-    for k in KERNELS:  # the main path's counts start here
-        k.launches = 0
-    main_res = main_path(graph, args.steps, PAPER["seeds"], by_name["whole_round"]["device_ms"])
-    counts = {k.__name__: k.launches for k in KERNELS}
-    log("main", launches=counts)
-    lap("3 main path")
-    main_eager_windows(graph, PAPER["seeds"], main_res)
-    lap("3 eager window")
-    profile = profile_rounds(graph, PAPER["seeds"])
-    lap("3 profile")
-    parity = cross_device(graph)
-    lap("4 cross-device parity")
-    unfused = unfused_paths(graph, counts)
-    lap("5 unfused paths")
-    unfused.update(estimator_modes(graph, counts))
-    lap("5 estimator modes")
-    unfused["device_launches"] = phase5_device_launches(graph)
-    lap("5 device launches")
-    captured = captured_vs_eager(graph)
-    lap("5 captured vs eager")
-    serve, serve_counts = serve_models("cuda")
-    lap("6 serve")
-    counts.update(serve_counts)
-    if args.sweep_steps < PAPER["steps"]:
-        fired = [b for b in PAPER["bursts"] if b < args.sweep_steps]
-        log("sweep", cut=f"steps {args.sweep_steps} of the paper's {PAPER['steps']}; bursts at "
-                         f"{fired} fire; n, W, B and seeds uncut")
-    # the CPU side of phases 8 and 9's parity, in a process beside phases 7-9
+    # the CPU side of phases 8-10's parity, in a process beside phases 14
+    # and 3-10
     pool, cpu = start_cpu_runs()
     try:
+        # phase 14 runs here, while the card holds nothing of the other phases
+        # (dbrx-132b's one layer trains in ~54 GB of its 80)
+        training = train_phase("cuda")
+        lap("14 train")
+        by_name = {r["name"]: r for r in rows}
+
+        if args.steps < PAPER["steps"]:
+            fired = [b for b in PAPER["bursts"] if b < args.steps]
+            log("main", cut=f"steps {args.steps} of the paper's {PAPER['steps']}; bursts at "
+                            f"{fired} fire; n, W, B and seeds uncut")
+        for k in KERNELS:  # the main path's counts start here
+            k.launches = 0
+        main_res = main_path(graph, args.steps, PAPER["seeds"], by_name["whole_round"]["device_ms"])
+        counts = {k.__name__: k.launches for k in KERNELS}
+        log("main", launches=counts)
+        lap("3 main path")
+        main_eager_windows(graph, PAPER["seeds"], main_res)
+        lap("3 eager window")
+        profile = profile_rounds(graph, PAPER["seeds"])
+        lap("3 profile")
+        parity = cross_device(graph)
+        lap("4 cross-device parity")
+        unfused = unfused_paths(graph, counts)
+        lap("5 unfused paths")
+        unfused.update(estimator_modes(graph, counts))
+        lap("5 estimator modes")
+        unfused["device_launches"] = phase5_device_launches(graph)
+        lap("5 device launches")
+        captured = captured_vs_eager(graph)
+        lap("5 captured vs eager")
+        serve, serve_counts = serve_models("cuda")
+        lap("6 serve")
+        counts.update(serve_counts)
+        if args.sweep_steps < PAPER["steps"]:
+            fired = [b for b in PAPER["bursts"] if b < args.sweep_steps]
+            log("sweep", cut=f"steps {args.sweep_steps} of the paper's {PAPER['steps']}; bursts at "
+                             f"{fired} fire; n, W, B and seeds uncut")
         sweep, sweep_counts = sweep_phase(graph, args.sweep_steps, PAPER["seeds"], main_res)
         for k, v in sweep_counts.items():
             counts[k] += v
@@ -3196,7 +3595,7 @@ def main() -> int:
                   main=main_res, profile=profile, parity=parity, unfused=unfused,
                   captured_vs_eager=captured, serve=serve, sweep=sweep, zoo=zoo,
                   figures=figures, payload=payload, durable=durable, sharded=sharded,
-                  families=families, phase_s=phase_s)
+                  families=families, train=training, phase_s=phase_s)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(detail, fh, indent=1)

@@ -1,6 +1,8 @@
-"""Entry points of the port: serving (``launch.serve``), the device
-meshes (``launch.mesh``) and the node-sharded protocol step over several
-processes (``launch.sharded``)."""
+"""Entry points of the port: serving (``launch.serve``), training
+(``launch.train``), the device meshes (``launch.mesh``), the node-sharded
+protocol step over several processes (``launch.sharded``), and planning
+runs on the production meshes (``launch.sharding``, ``launch.roofline``,
+``launch.dryrun``)."""
 from repro_torch.launch.mesh import (
     data_axes,
     data_axis_size,

@@ -1,12 +1,12 @@
-"""Public model API for serving: init / forward / prefill / decode (the
-port of ``repro.models.model``).
+"""Public model API: init / loss / forward / prefill / decode (the port
+of ``repro.models.model``).
 
 A ``Model`` wraps a ``ModelConfig``; parameters live in a
 ``ModelParams`` module (the top-level leaves, and one module per layer in
 an ``nn.ModuleList``), passed to each method as in the reference:
 
   init(key, device)                  -> params
-  loss(tree, batch)                  -> (scalar, metrics)   [training]
+  loss(tree, batch)                  -> (scalar, metrics)   [train_4k]
   forward_logits(params, batch)      -> logits (B, S, V[, nq])
   prefill(params, batch)             -> (last_logits, cache)
   decode_step(params, cache, batch)  -> (logits, cache)
@@ -20,8 +20,9 @@ token).
 ``loss`` is functional and differentiable: it takes a plain dict tree of
 tensors (``params_tree``: the reference's pytree layout, layer leaves
 stacked (L, ...)) rather than the module, whose parameters carry no
-gradients. The RW-SGD payload trains a stack of such trees with a
-leading replica axis (``transformer.replica_losses``).
+gradients; ``launch.train.make_train_step`` trains every family through
+it. The RW-SGD payload trains a stack of dense trees with a leading
+replica axis (``transformer.replica_losses``).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from typing import Any, Dict, NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (
@@ -46,7 +48,7 @@ from repro_torch.models.transformer import (
 )
 from repro_torch.utils import prng
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.utils.tree import tree_leaves, tree_replace
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module: dict values become
@@ -146,16 +148,53 @@ class Model:
 
     def loss(self, params: Dict[str, Any], batch):
         """Mean next-token cross-entropy of one model (a ``params_tree``
-        dict) on ``batch`` ({"tokens", "labels"}: (B, S) int), computed
-        in float32 as ``lse - gold``; returns ``(total, {"ce", "aux"})``
-        with ``total = ce + aux`` (aux is 0 for dense). Differentiable:
-        gradients flow to the tree's tensors. Only the dense family
-        trains, and ``use_pallas=True`` raises (no backward kernel)."""
-        check_trainable(self.cfg)
-        ce = replica_losses(_add_replica_axis(params), self.cfg, batch["tokens"][None],
-                            batch["labels"][None])[0]
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        dict) on ``batch`` ({"tokens", "labels"}: (B, S) int, (B, S, nq)
+        with codebooks; the vlm's ``vision_embeds`` too), in the
+        reference's order: the embeddings (after the vlm's projected
+        vision prefix), the layer stack summing each layer's aux loss, the
+        vision positions dropped, ``logits_from_h`` ((B, S, V) or
+        (B, S, nq, V)), then ``mean(lse - gold)`` in float32. Returns
+        ``(total, {"ce", "aux"})`` with ``total = ce + aux`` (aux is 0 but
+        for the MoE's load-balance loss). Differentiable: gradients flow
+        to the tree's tensors. ``cfg.remat`` recomputes each layer in the
+        backward pass (``torch.utils.checkpoint``, the reference's
+        ``jax.checkpoint`` of the layer body); ``cfg.seq_sharded_residual``
+        is a sharding constraint on the residual stream, which on one
+        device is the identity, as here. ``use_pallas=True`` raises (no
+        backward kernel)."""
+        cfg = self.cfg
+        check_trainable(cfg)
+        h = self._embed_batch(params, batch)
+        pos_info = make_pos_info(cfg, h.shape[0], h.shape[1], h.device)
+        h, aux = self._train_stack(params["layers"], h, pos_info)
+        if cfg.arch_type == "vlm":
+            h = h[:, cfg.vision_tokens:]
+        logits = logits_from_h(params, cfg, h).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
+        ce = torch.mean(lse - gold)
         return ce + aux, {"ce": ce, "aux": aux}
+
+    def _train_stack(self, layers: Dict[str, Any], h, pos_info):
+        """The layer stack over ``params_tree``'s stacked (L, ...) layer
+        leaves; returns (h, the layers' summed aux loss)."""
+        cfg = self.cfg
+        per_layer = [leaf.unbind(0) for leaf in tree_leaves(layers)]  # one stack in backward
+
+        def body(x, *leaves):
+            x, a, _ = block_apply_full(tree_replace(layers, leaves), x, cfg, pos_info, False)
+            return x, a
+
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(cfg.num_layers):
+            leaves = [leaf[i] for leaf in per_layer]
+            if cfg.remat:  # the layer draws no random numbers: no RNG state to keep
+                h, a = checkpoint(body, h, *leaves, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                h, a = body(h, *leaves)
+            aux = aux + a
+        return h, aux
 
     def replica_losses(self, params: Dict[str, Any], batch) -> torch.Tensor:
         """(R,) losses of a stack of R models: ``params_tree`` leaves with
@@ -176,7 +215,7 @@ class Model:
     def _stack_full(self, params, h, pos_info, collect_cache: bool):
         caches = []
         for lp in params.layers:
-            h, entry = block_apply_full(lp, h, self.cfg, pos_info, collect_cache)
+            h, _aux, entry = block_apply_full(lp, h, self.cfg, pos_info, collect_cache)
             caches.append(entry)
         if not collect_cache:
             return h, None
@@ -266,10 +305,6 @@ class Model:
             h = block_apply_decode(lp, h, cfg, {k: t[i] for k, t in layers.items()}, pos_info)
         pos.add_(1)  # in place: a captured step keeps its cache at fixed addresses
         return logits_from_h(params, cfg, h), cache
-
-
-def _add_replica_axis(tree):
-    return {k: _add_replica_axis(v) if isinstance(v, dict) else v[None] for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -263,8 +263,10 @@ def _mix(lp, attn_out, ssm_out, cfg):
 
 
 def block_apply_full(lp, x, cfg: ModelConfig, pos_info, collect_cache: bool):
-    """Returns (x', cache_entry or None). (The MoE layer's aux loss is the
-    training path's, which is not ported for this family.)"""
+    """Returns (x', aux_loss, cache_entry or None): the MoE layer's
+    load-balance loss (float32; 0 for every other family), which
+    ``Model.loss`` sums over the layers."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache_entry = {} if collect_cache else None
     if cfg.arch_type == "ssm":
         h = rmsnorm(x, lp["norm"], cfg.norm_eps)
@@ -273,7 +275,7 @@ def block_apply_full(lp, x, cfg: ModelConfig, pos_info, collect_cache: bool):
             cache_entry.update(sc)
         else:
             y = ssm_lib.ssm_forward_train(lp["ssm"], h, cfg)
-        return x + y, cache_entry
+        return x + y, aux, cache_entry
     h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
     if cfg.use_mla:
         attn_out, (ckv, kr) = mla_full(lp["attn"], h, cfg, pos_info)
@@ -294,8 +296,9 @@ def block_apply_full(lp, x, cfg: ModelConfig, pos_info, collect_cache: bool):
         x = x + attn_out
     h2 = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
     if cfg.arch_type == "moe":
-        return x + moe_lib.moe_apply(lp["moe"], h2, cfg)[0], cache_entry
-    return x + swiglu(lp["mlp"], h2), cache_entry
+        y, aux = moe_lib.moe_apply(lp["moe"], h2, cfg)
+        return x + y, aux, cache_entry
+    return x + swiglu(lp["mlp"], h2), aux, cache_entry
 
 
 def block_apply_decode(lp, x, cfg: ModelConfig, cache_l, pos_info):
@@ -394,22 +397,30 @@ def make_pos_info(cfg: ModelConfig, batch_size: int, seq_len: int, device):
 
 
 # ---------------------------------------------------------------------------
-# Training: the loss of a stack of model replicas
+# Training: the guard, and the loss of a stack of dense model replicas
 # ---------------------------------------------------------------------------
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a configuration the training path does not cover."""
+    """Raise for a configuration the training path does not cover: the
+    model kernels (``use_pallas=True``) have no backward."""
     if cfg.use_pallas:
         raise NotImplementedError(
             f"{cfg.name}: use_pallas=True has no backward: flash_attention and "
             "ssd_intra_chunk are forward-only kernels (the reference's jax.grad "
             "through pallas_call fails too); train with use_pallas=False"
         )
+
+
+def check_replica_trainable(cfg: ModelConfig) -> None:
+    """:func:`check_trainable`, and only the dense family: the batched
+    replica stack (:func:`replica_losses`, the RW-SGD payload's) is
+    written for dense models; ``Model.loss`` trains every family."""
+    check_trainable(cfg)
     if cfg.arch_type != "dense":
         raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.arch_type} family is not ported yet (the RW-SGD "
-            "payload trains dense models); see ROADMAP.md queue 1, item 12"
+            f"{cfg.name}: replica_losses batches dense models only, not the "
+            f"{cfg.arch_type} family; train one model with Model.loss"
         )
 
 
@@ -435,7 +446,7 @@ def replica_losses(p, cfg: ModelConfig, tokens: torch.Tensor, labels: torch.Tens
     GPU. ``gold`` is a gather whose backward scatters one value into
     each (position, label) element, which no two positions share, so it
     is exact."""
-    check_trainable(cfg)
+    check_replica_trainable(cfg)
     R, B, S = tokens.shape
     T = B * S
     dt = torch_dtype(cfg)

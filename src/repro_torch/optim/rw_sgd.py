@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.core.payload import Payload
 from repro_torch.data.synthetic import SyntheticTask, sample_batch
-from repro_torch.models.transformer import check_trainable
+from repro_torch.models.transformer import check_replica_trainable
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_replace
 
 
@@ -178,7 +178,7 @@ class RwSgdPayload(Payload):
 
     def __init__(self, model, optimizer, task: SyntheticTask, max_walks: int,
                  local_batch: int = 2, seq_len: int = 32, train_every: int = 1):
-        check_trainable(model.cfg)
+        check_replica_trainable(model.cfg)
         self.model = model
         self.optimizer = optimizer
         self.task = task

@@ -66,19 +66,21 @@ def tree_map(fn, tree, *rest):
 def tree_replace(like, leaves):
     """``like``'s structure with its tensors replaced, in
     :func:`tree_leaves` order, by ``leaves``."""
-    it = iter(leaves)
+    return _replace(like, iter(leaves))
 
-    def build(t):
-        if isinstance(t, torch.Tensor):
-            return next(it)
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, tuple):
-            vals = [build(v) for v in t]
-            return type(t)(*vals) if hasattr(t, "_fields") else tuple(vals)
-        return t
 
-    return build(like)
+def _replace(t, it):
+    # a module-level recursion: a nested recursive closure is a reference
+    # cycle, which would keep ``leaves`` (and the tensors in it) alive until
+    # the cyclic garbage collector runs
+    if isinstance(t, torch.Tensor):
+        return next(it)
+    if isinstance(t, dict):
+        return {k: _replace(t[k], it) for k in sorted(t)}
+    if isinstance(t, tuple):
+        vals = [_replace(v, it) for v in t]
+        return type(t)(*vals) if hasattr(t, "_fields") else tuple(vals)
+    return t
 
 
 def _is_leaf(x) -> bool:
@@ -120,21 +122,20 @@ def tree_flatten_with_paths(tree, prefix: str = "") -> list:
 def tree_unflatten_like(like, leaves):
     """``like``'s structure with its leaves (as :func:`tree_flatten_with_paths`
     lists them) replaced, in order, by ``leaves``."""
-    it = iter(leaves)
+    return _unflatten(like, iter(leaves))
 
-    def build(t):
-        if _is_leaf(t):
-            return next(it)
-        kids = _children(t)
-        if kids is None:
-            return t
-        vals = [build(c) for _, c in kids]
-        if isinstance(t, dict):
-            return dict(zip([k for k in sorted(t)], vals))
-        if isinstance(t, tuple) and hasattr(t, "_fields"):
-            return type(t)(*vals)
-        if isinstance(t, (tuple, list)):
-            return type(t)(vals)
-        return dataclasses.replace(t, **{name: v for (name, _), v in zip(kids, vals)})
 
-    return build(like)
+def _unflatten(t, it):  # module-level, as _replace, so no cycle holds ``leaves``
+    if _is_leaf(t):
+        return next(it)
+    kids = _children(t)
+    if kids is None:
+        return t
+    vals = [_unflatten(c, it) for _, c in kids]
+    if isinstance(t, dict):
+        return dict(zip([k for k in sorted(t)], vals))
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*vals)
+    if isinstance(t, (tuple, list)):
+        return type(t)(vals)
+    return dataclasses.replace(t, **{name: v for (name, _), v in zip(kids, vals)})

@@ -314,6 +314,43 @@ def test_cuda_serve_families_through_the_kernels(cuda, arch):
     assert torch.equal(gen.cpu(), cpu_gen) and stats["decode_steps"] == 5
 
 
+@pytest.mark.parametrize("arch", ["hymba_1_5b", "dbrx_132b"])
+def test_cuda_train_step_matches_cpu(cuda, arch):
+    """One ``make_train_step`` (SGD, two microbatches, remat) of a smoke
+    model in float32 on the card against the same step on the CPU from the
+    same weights: the loss within 1e-5 relative, every parameter within
+    rtol 2e-4 / atol 2e-5; training runs the plain paths, so no kernel of
+    the port launches. Products in full float32 (no TF32)."""
+    import dataclasses
+
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import sgd
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg, model, params, batch = _family_case(cuda, arch, b=4, s=64)
+    model = Model(dataclasses.replace(cfg, remat=True))
+    tree = Model.params_tree(params)
+    batch["labels"] = torch.roll(batch["tokens"], 1, dims=1)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = [k.launches for k in KERNELS]
+    try:
+        out = {}
+        for dev in (cuda, torch.device("cpu")):
+            t = tree_map(lambda x: x.to(dev), tree)
+            step = make_train_step(model, sgd(0.1), microbatches=2)
+            new, state, met = step(t, sgd(0.1).init(t), {k: v.to(dev) for k, v in batch.items()})
+            out[dev.type] = ([x.cpu() for x in tree_leaves(new)], float(met["loss"]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert [k.launches for k in KERNELS] == before
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-5 * abs(out["cpu"][1])
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+
+
 @pytest.mark.parametrize("arch,over", [("dbrx_132b", {}), ("deepseek_v2_236b", {}),
                                        ("deepseek_v2_236b", dict(mla_absorb=True)),
                                        ("dbrx_132b", dict(moe_groups=2, capacity_factor=0.5))])

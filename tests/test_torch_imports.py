@@ -61,6 +61,8 @@ def test_port_imports_without_jax():
         "import repro_torch.checkpoint, repro_torch.utils.faults, repro_torch.api.store\n"
         "import repro_torch.core.distributed, repro_torch.launch.mesh, repro_torch.launch.sharded\n"
         "from repro_torch.core import make_sharded_step, ShardedProtocolState\n"
+        "import repro_torch.configs.shapes, repro_torch.launch.train, repro_torch.launch.sharding\n"
+        "import repro_torch.launch.roofline, repro_torch.launch.dryrun\n"
         "from repro_torch.api import ExperimentService, ResultStore, SubmissionFuture\n"
         "from repro_torch.api import Experiment, registry; assert 'zoo' in registry.names()\n"
         "from repro_torch.api import cache_stats; from repro_torch.api.plan import executable\n"

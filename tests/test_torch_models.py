@@ -124,9 +124,11 @@ def test_init_matches_reference(arch, weights):
 
 
 def test_unported_families_raise():
-    """The moe, hybrid, audio and vlm families build and serve (their
-    parity: tests/test_torch_moe.py, test_torch_families*.py); training
-    them is not ported yet and raises, citing its ROADMAP.md item."""
+    """The moe, hybrid, audio and vlm families build, serve (their
+    parity: tests/test_torch_moe.py, test_torch_families*.py) and, since
+    training them is ported, train through ``Model.loss`` (its parity:
+    tests/test_torch_train_families.py); only ``use_pallas=True`` still
+    raises, for it has no backward kernel."""
     from repro_torch.data import random_batch_like
     from repro_torch.models.model import batch_spec
     from repro_torch.models.transformer import check_trainable
@@ -140,11 +142,11 @@ def test_unported_families_raise():
         gen, stats = serve.generate(m, params, batch, 2)
         nq = cfg.num_codebooks
         assert gen.shape == (1, 2) + ((nq,) if nq else ()) and stats["decode_steps"] == 1
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 12"):
-            check_trainable(cfg)
-        with pytest.raises(NotImplementedError, match="item 12"):
-            m.loss(Model.params_tree(params), {"tokens": batch["tokens"],
-                                               "labels": batch["tokens"]})
+        check_trainable(cfg)
+        loss, met = m.loss(Model.params_tree(params), dict(batch, labels=batch["tokens"]))
+        assert torch.isfinite(loss) and float(loss) == float(met["ce"] + met["aux"])
+        with pytest.raises(NotImplementedError, match="backward"):
+            check_trainable(dataclasses.replace(cfg, use_pallas=True))
 
 
 # ---------------------------------------------------------------------------

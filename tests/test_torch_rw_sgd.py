@@ -204,11 +204,15 @@ def test_model_loss_and_grads_match_reference():
 
 
 def test_training_guards():
-    """No backward kernel for use_pallas=True, and only dense trains."""
+    """No backward kernel for use_pallas=True, and only dense models ride
+    the walks: the batched replica stack (``replica_losses``, the
+    payload's) is written for the dense family (``Model.loss`` trains
+    every family, tests/test_torch_train*.py)."""
     with pytest.raises(NotImplementedError, match="backward"):
         Model(get_smoke_config("paper_rwsgd", use_pallas=True)).loss({}, {})
     with pytest.raises(NotImplementedError, match="ssm"):
-        Model(get_smoke_config("mamba2_1_3b")).loss({}, {})
+        Model(get_smoke_config("mamba2_1_3b")).replica_losses({}, {"tokens": torch.zeros(
+            (1, 1, 4), dtype=torch.int32), "labels": torch.zeros((1, 1, 4), dtype=torch.int32)})
 
 
 # ---------------------------------------------------------------------------
