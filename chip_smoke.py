@@ -13,7 +13,8 @@ capture is timed apart from its replays, and short eager windows of the
 same runs are timed beside them and held to them bitwise.
 
 Phases, each printed on its own line (phase 14 runs right after phase 2,
-while the card holds nothing of the others):
+while the card holds nothing of the others; phase 15 after phase 12,
+phase 13 last):
 
 1. device: nvidia-smi's name and power limit, torch's device name, and
    the build of the kernels' seven sources from ``src/repro_torch/csrc``
@@ -27,7 +28,10 @@ while the card holds nothing of the others):
    also at phase 7's 200 rows; round_update / theta_sums also at
    n = 100,000, batch 1; whole_round and theta_sums also at phase 9's
    batch 8 on its other graphs: regular n 50 and 200, complete, Erdos-Renyi
-   and power-law n 100); flash_attention at yi-6b's prefill (batch 4,
+   and power-law n 100; and at phase 15's widths and batch on Cayley
+   graphs of n 262,144 and 1,048,576, past the ~231,000 nodes the kernel's
+   one CTA per trajectory once held in shared memory); flash_attention at
+   yi-6b's prefill (batch 4,
    S 512, H 32, KV 4, D 128, bf16, tolerance 3e-2; the same batch and S
    at D 64 and D 256), paper-rwsgd's (S 128, H 8, KV 4, D 32, f32, 2e-4),
    yi-6b's float32 gate's (its prefill's shape in f32, 2e-4) and a
@@ -56,7 +60,7 @@ while the card holds nothing of the others):
    the replays, trajectory-rounds/s, capture seconds; the captured
    graph must hold one whole_round node (read from the graph), its
    launches must equal the rounds run plus the capture's warm-up round,
-   and Z_t must survive near Z0. Then each ensemble's first 100 rounds
+   and Z_t must survive near Z0. Then each ensemble's first 60 rounds
    through the eager loop (``run_rounds``), timed and held bitwise to
    the captured run, and a 20-round torch.profiler window of the
    captured round: the device's busy share, its kernels per round, and
@@ -116,7 +120,13 @@ while the card holds nothing of the others):
    each scenario of a cuda sweep equals its own cuda ensemble bitwise,
    and a 4-seed mixed sweep (the three algorithms and ``none``, churny
    failures) on cuda equals the same sweep on the CPU (integers bitwise,
-   theta_mean within 1e-6);
+   theta_mean within 1e-6). Then Fig. 5's DecAFork eps grid (4 scenarios
+   x 50 seeds, 600 rounds) as one group on one device and split over
+   ``cuda:0`` twice (``placement="sharded"`` with the placement's device
+   list set so: two blocks, two runners, two captures, two host threads):
+   bitwise, whole_round launched once per round per block plus each
+   capture's warm-up round, each block's round one whole_round node; the
+   second runs timed (ms per round, split against one device);
 8. zoo: Fig. 9's grid at its full widths (``benchmarks/fig9_zoo.py``
    under ``BENCH_FULL=1``: community graph n 64, two bridges; DecAFork+
    Z0 10, eps 3.0 / 7.57, W 64, B 1024, decisions from step 1000; the
@@ -209,17 +219,20 @@ while the card holds nothing of the others):
    resumed: outputs, losses and final replicas bitwise the straight
    captured run;
 12. sharded: the node-sharded protocol step
-   (``repro_torch.core.distributed``, eager; no kernel of
-   ``repro_torch.kernels`` on its path, and their counters must not move).
-   (a) The reference's production protocol step (``launch/dryrun.py::
-   build_protocol``: DecAFork+ Z0 16, eps 4.0 / 11.0, W 64, B 512, max
-   degree 16) at its n 131,072 on a Cayley graph of Z_n of degree 16
-   (offsets drawn from the seed: the port's generators fill a dense n x n
-   adjacency), over NCCL at world size 1 (a ``FileStore``), 500 rounds:
-   ms per round over the last 450 (host clock ending in a synchronize),
-   Z's range, peak device memory, the node tables' bytes, and 10 rounds
-   under torch.profiler (kernels per round, busy share); the state after
-   50 rounds must be bitwise the same step on the CPU. (b) Two spawned
+   (``repro_torch.core.distributed``; no kernel of ``repro_torch.kernels``
+   on its path, and their counters must not move). (a) The reference's
+   production protocol step (``launch/dryrun.py::build_protocol``:
+   DecAFork+ Z0 16, eps 4.0 / 11.0, W 64, B 512, max degree 16) at its n
+   131,072 on a Cayley graph of Z_n of degree 16 (offsets drawn from the
+   seed: the port's generators fill a dense n x n adjacency), over NCCL at
+   world size 1 (a ``FileStore``), 2000 rounds through ``run_sharded``,
+   which captures the round as a CUDA graph over NCCL: the first 50
+   rounds captured must be bitwise the same rounds eager and the same
+   step on the CPU; ms per round over the last 1950 captured rounds (host
+   clock ending in a synchronize) beside the eager loop's over 100 of
+   them, the capture's seconds and kernel nodes, Z's range, peak device
+   memory, the node tables' bytes, and 10 replays under torch.profiler
+   (kernels per round, busy share). (b) Two spawned
    ranks over gloo on CUDA tensors (NCCL refuses two ranks on one
    device), a 16-regular Cayley graph of n 4,096, random node and link
    masks, 150 rounds: bitwise world size 1 on the same inputs;
@@ -244,7 +257,7 @@ while the card holds nothing of the others):
    backward, so no kernel of the port may launch in this phase), bf16
    weights from ``Model.init`` (seed 0), batches from ``make_markov_task``.
    (a) hymba-1.5b at its published width and depth, batch 4 x 1,024, 2
-   microbatches, 30 steps: 3 eager (host-bound), then the donated step
+   microbatches, 20 steps: 3 eager (host-bound), then the donated step
    captured as a CUDA graph and replayed (its first replay's loss bitwise
    an eager step's from a copy of the state); (b) dbrx-132b at its published width, 1 of its
    40 layers (132 B parameters at full depth), batch 2 x 512, 10 steps,
@@ -258,7 +271,18 @@ while the card holds nothing of the others):
    qwen2-vl-2b): one step (SGD) on cuda and on the CPU from the same
    weights: loss within 1e-5 relative, parameters within rtol 2e-4 / atol
    2e-5, the MoE's expert ids equal wherever the router's top-k margin
-   exceeds 1e-6.
+   exceeds 1e-6;
+15. large graph: ``Experiment(...).ensemble(8)`` with phase 12's protocol
+   (DecAFork+ Z0 16, eps 4.0 / 11.0, W 64, B 512) on a 16-regular Cayley
+   graph of n 1,048,576 with light node and link churn,
+   ``round_impl="auto"`` (the fused round: whole_round), captured, 200
+   rounds: the decision, one whole_round node in the captured round and
+   its launches (the replays plus the warm-up round), Z in [1, W], ms per
+   round, trajectory-rounds/s, capture seconds, peak memory. Then 10
+   rounds of the same cell at n 262,144, 8 seeds on cuda, row 0 against
+   the spawned CPU process's 1-seed run of the same keys: integer outputs
+   bitwise, the final carry's tables bitwise (SHA-256 of their bytes),
+   theta_mean within 1e-6.
 
 Before the last line it prints the card's name and power limit, then one
 JSON object with every kernel's launches, error and times; the last line
@@ -331,7 +355,8 @@ CPU_LOGIT_TOL = 2e-4  # their prefill logits, cuda vs CPU (the CPU parity tests'
 TRAIN_RUNS = (  # dbrx first: it needs the most memory
     ("dbrx", dict(arch="dbrx_132b", layers=1, batch=2, seq=512, steps=10, microbatches=1,
                   warmup=3, donate=True, data_vocab=8192)),
-    ("hymba", dict(arch="hymba_1_5b", layers=None, batch=4, seq=1024, steps=30, microbatches=2,
+    # 30 steps until phase 15 came
+    ("hymba", dict(arch="hymba_1_5b", layers=None, batch=4, seq=1024, steps=20, microbatches=2,
                    warmup=10, donate=True, capture=True)),
 )
 # (a)'s eager steps before its step is captured (its eager step is
@@ -356,8 +381,8 @@ MAIN_STEPS = 6300
 SWEEP_STEPS = 6100
 # eager rounds timed beside each captured run (phases 3 and 7), and
 # captured rounds under the profiler (phase 3): 200 and 50 until phase 14
-# came
-EAGER_WINDOW = 100
+# came, then 100 and 20; the window 60 since phase 15
+EAGER_WINDOW = 60
 PROFILE_ROUNDS = 20
 ALGS = {"decafork": dict(eps=2.0), "decafork+": dict(eps=3.0, eps2=7.57)}
 EPS_MP = 400.0  # MissingPerson's timeout in benchmarks/common.py
@@ -432,10 +457,27 @@ CPU_TIMEOUT_S = 600  # the longest phases 8 and 9 wait for that process's result
 # ``cpu_rounds`` held bitwise to the CPU; then two ranks over gloo on the
 # card against world size 1 on a 16-regular Cayley graph of n 4,096 with
 # random masks
+# rounds: 2000 eager until phase 14 came, then 500; captured, 2000 again
 SHARDED = dict(n=131072, degree=16, z0=16, max_walks=64, eps=4.0, eps2=11.0, rt_bins=512,
-               rounds=500, cpu_rounds=50)  # rounds: 2000 until phase 14 came
+               rounds=2000, cpu_rounds=50)
 SHARDED_RANKS = dict(n=4096, degree=16, rounds=150, world=2)  # rounds: 300 until phase 14
-SHARDED_PROFILE = 10  # eager rounds of (a) under torch.profiler
+SHARDED_PROFILE = 10  # captured rounds of (a) under torch.profiler
+SHARDED_EAGER = 100  # eager rounds of (a) timed beside the captured ones
+# phase 15: the large-graph main path. SHARDED's protocol (DecAFork+ Z0 16,
+# eps 4.0 / 11.0, W 64, B 512) on a 16-regular Cayley graph of n 1,048,576
+# (past the ~231,000 nodes whole_round's one CTA per trajectory once held
+# in shared memory) with light node and link churn, 8 seeds, captured;
+# the card's integers held to a CPU run of the same inputs over a
+# ``window`` of rounds at 1 seed at n 262,144 (the CPU's threefry over the
+# 16.8 M edge uniforms a round at n 1,048,576 takes ~14 s); whole_round
+# at ``kernel_n`` in phase 2
+LARGE = dict(n=1_048_576, seeds=8, rounds=200, window_n=262_144, window=10,
+             kernel_n=(262_144, 1_048_576))
+LARGE_CHURN = dict(p_node_fail=1e-4, p_node_recover=0.3, p_link_fail=1e-4, p_link_recover=0.4)
+# phase 7 (c): Fig. 5's DecAFork eps grid (4 scenarios x 50 seeds) split
+# over ``cuda:0`` twice (two blocks, two runners, two host threads) against
+# the one-device sweep
+SPLIT = dict(steps=600, devices=2)
 
 
 def log(phase: str, **kv) -> None:
@@ -487,7 +529,8 @@ def max_abs_err(got, want) -> float:
 
     err = 0.0
     for i, (g, w) in enumerate(zip(got, want)):
-        g, w = g.cpu(), w.cpu()
+        if g.device != w.device:
+            g, w = g.cpu(), w.cpu()
         if g.dtype.is_floating_point:
             same = torch.equal(g.view(torch.int32), w.view(torch.int32))
             err = max(err, float((g - w).abs().max()) if g.numel() else 0.0)
@@ -550,6 +593,57 @@ def whole_round_inputs(rng, batch, n, C, B, D, W, K, graph, dev):
             f32(batch, W), f32(batch, W), f32(batch, W), f32(batch, W),
             f32(batch, K, W), bsz, f32(batch, n), f32(batch, n), sched,
             f32(batch, n, D), f32(batch, n, D), to(params_f), to(params_i))
+
+
+def large_whole_round_inputs(n, dev, batch=LARGE["seeds"], seed=0):
+    """:func:`whole_round_inputs` at SHARDED's widths (W = C 64, B 512,
+    degree 16) on a Cayley graph of ``n`` nodes, drawn on the card from a
+    seeded generator: numpy's draws of the (batch, n, B) histogram would
+    take tens of GB of host memory at n 1,048,576."""
+    import torch
+
+    W = C = SHARDED["max_walks"]
+    B, D, K = SHARDED["rt_bins"], SHARDED["degree"], 2
+    gen = torch.Generator(device=dev).manual_seed(seed + n)
+    uni = lambda *s: torch.rand(s, generator=gen, device=dev)  # noqa: E731
+    ints = lambda lo, hi, *s, dtype=torch.int32: torch.randint(  # noqa: E731
+        lo, hi, s, generator=gen, device=dev, dtype=dtype)
+    g = cayley_graph(n, D, seed)
+    hist = ints(0, 3, batch, n, B, dtype=torch.int16)
+    params_f = torch.tensor([0.05, 0.05, 0.05, 0.3, 0.4, 3.0, 7.57, 0.1],
+                            device=dev).repeat(batch, 1)
+    params_i = torch.tensor([70, 2, 4, 1], dtype=torch.int32, device=dev).repeat(batch, 1)
+    return (ints(-1, 70, batch, n, C), hist, hist.sum(2, dtype=torch.int32),
+            uni(batch, n) < 0.9, uni(batch, n, D) < 0.9, ints(0, n, batch, W),
+            torch.arange(W, dtype=torch.int32, device=dev).repeat(batch, 1),
+            uni(batch, W) < 0.8, torch.as_tensor(g.neighbors, device=dev),
+            torch.as_tensor(g.degrees, device=dev), uni(batch, W), uni(batch, W),
+            uni(batch, W), uni(batch, W), uni(batch, K, W), ints(0, 4, batch, K),
+            uni(batch, n), uni(batch, n), uni(batch, n) < 0.02, uni(batch, n, D),
+            uni(batch, n, D), params_f, params_i)
+
+
+def whole_round_bytes(x) -> int:
+    """Bytes whole_round must move on inputs ``x`` (its argument tuple):
+    the topology tables and uniforms in and the new ones out (11 bytes a
+    node, 10 an edge), the walk vectors, and the rows the walks visit
+    (last_seen, hist, total read; outputs written). The count is the
+    function's: the node-tiled topology launch and the per-trajectory
+    launch that reads its node liveness back from L2 move more."""
+    bt, n, C = x[0].shape
+    B, D, W, K = x[1].shape[2], x[4].shape[2], x[5].shape[1], x[14].shape[1]
+    visited = sum(len(set(p.tolist())) for p in x[5].cpu())
+    return (bt * (n * D * (1 + 4 + 4 + 1) + n * (1 + 4 + 4 + 1 + 1))
+            + bt * W * (4 * 8 + 4 * K + D * 8)
+            + visited * (C * 4 + B * 2 + 4))
+
+
+def whole_round_ops(x) -> int:
+    """Simple operations of whole_round on ``x``: three an edge, and the
+    walks' hop, burst ranks, choose and theta rows."""
+    bt, n, C = x[0].shape
+    B, D, W, K = x[1].shape[2], x[4].shape[2], x[5].shape[1], x[14].shape[1]
+    return bt * (3 * n * D + W * (4 * D + (1 + K) * W + B + 2 * C))
 
 
 def obs_bytes(batch, n, C, B, W, sums_rows) -> int:
@@ -636,21 +730,35 @@ def check_kernels(rng, graph, dev, large_n=100_000):
                 max_abs_err(whole_round_plain(*cpu(clone(x)), plus), want)
         work = clone(x)
         plain_ms = cuda_ms(lambda: whole_round_plain(*work, True), 1, 3)
-        # bytes: topology tables and uniforms, the walk vectors, and the
-        # rows the walks visit (last_seen, hist, total read; outputs written)
-        visited = sum(len(set(p.tolist())) for p in x[5].cpu())
-        nbytes = (bt * (n * D * (1 + 4 + 4 + 1) + n * (1 + 4 + 4 + 1 + 1))
-                  + bt * W * (4 * 8 + 4 * K + D * 8)
-                  + visited * (C * 4 + B * 2 + 4))
         ent = entry("whole_round", "src/repro_torch/csrc/whole_round.cu",
                     "src/repro/kernels/round_update.py:442", err,
                     lambda: whole_round(*work, decafork_plus=True), plain_ms,
-                    nbytes, bt * (3 * n * D + W * (4 * D + (1 + K) * W + B + 2 * C)),
-                    f"batch={bt},n={n}", 50)
+                    whole_round_bytes(x), whole_round_ops(x), f"batch={bt},n={n}", 50)
         if bt == batch:
             rows.append(ent)
         else:
             rows[-1]["batch200"] = ent
+
+    # whole_round at phase 15's widths and batch on Cayley graphs past the
+    # ~231,000 nodes its one CTA per trajectory once held in shared memory
+    # (n 262,144 and 1,048,576; the tables take up to 11 GB a copy), both
+    # algorithms bitwise, compared on the card
+    for nn in LARGE["kernel_n"]:
+        x = large_whole_round_inputs(nn, dev)
+        err = max(max_abs_err(whole_round(*clone(x), decafork_plus=plus),
+                              whole_round_plain(*clone(x), plus)) for plus in (False, True))
+        nbytes, nops = whole_round_bytes(x), whole_round_ops(x)
+        work = x
+        del x
+        plain_ms = cuda_ms(lambda: whole_round_plain(*work, True), 1, 3)
+        ent = entry("whole_round", "src/repro_torch/csrc/whole_round.cu",
+                    "src/repro/kernels/round_update.py:442", err,
+                    lambda: whole_round(*work, decafork_plus=True), plain_ms, nbytes, nops,
+                    f"cayley,batch={LARGE['seeds']},n={nn},D={SHARDED['degree']},"
+                    f"W={SHARDED['max_walks']},B={SHARDED['rt_bins']}", 10)
+        rows[2].setdefault("large_n", []).append(ent)
+        del work
+        torch.cuda.empty_cache()
 
     # whole_round and theta_sums on phase 9's other graphs at its batch (the
     # drivers' 8 seeds), bitwise their plain versions on the card
@@ -2237,6 +2345,70 @@ def sweep_parity(graph):
 # ---------------------------------------------------------------------------
 
 
+def split_sweep(graph, steps=SPLIT["steps"], seeds=PAPER["seeds"]):
+    """Phase 7 (c): Fig. 5's DecAFork eps grid (4 scenarios x ``seeds``
+    rows, the main path's setting, bursts moved inside ``steps``) as one
+    ``sweep_group`` on one device, and with the placement's device list
+    set to ``cuda:0`` ``SPLIT["devices"]`` times (``"sharded"``): two
+    blocks of scenarios, each with its own runner, cache slot, capture and
+    host thread. The split run must be bitwise the one-device run (final
+    state and outputs), each block's round must hold one whole_round
+    node, and whole_round must launch once per round per block plus each
+    capture's warm-up round. Each is run twice; the second runs are timed
+    (ms per round, no capture). Returns the result and whole_round's
+    launches."""
+    import torch
+
+    from repro_torch.api import Experiment, placement
+    from repro_torch.api import plan as plan_mod
+    from repro_torch.kernels import whole_round
+
+    fail = dict(burst_times=(steps // 3, 2 * steps // 3), burst_sizes=PAPER["burst_sizes"])
+    scen = figure_scenarios(steps // 6, fail, EPS_MP)[:len(EPS_GRID)]
+    k = SPLIT["devices"]
+    res, outs, launches = dict(steps=steps, seeds=seeds, scenarios=len(scen), blocks=k), {}, 0
+    visible = placement._visible_devices
+    try:
+        for label, policy in (("one_device", "local"), ("split", "sharded")):
+            if label == "split":
+                placement._visible_devices = lambda device: [torch.device("cuda", 0)] * k
+            plan = Experiment(graph=graph, scenarios=scen, steps=steps, outputs="full",
+                              device="cuda", placement=policy).plan()
+            slots = set(plan_mod._EXECUTABLES)
+            before = whole_round.launches
+            outs[label] = plan.sweep_group(scen, seeds=seeds)
+            new = [r for key, r in plan_mod._EXECUTABLES.items() if key not in slots]
+            if len(new) != (1 if label == "one_device" else k):
+                raise AssertionError(f"phase 7 (c) {label}: {len(new)} new runners")
+            for r in new:
+                graph_launches(r, f"phase 7 (c) {label}", {"whole_round": 1})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = plan.sweep_group(scen, seeds=seeds)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            grew = whole_round.launches - before
+            want = len(new) * (2 * steps + 1)
+            if grew != want:
+                raise AssertionError(f"phase 7 (c) {label}: whole_round launched {grew} times, "
+                                     f"expected {want}")
+            launches += grew
+            again, outs[label] = ((st, tuple(rec)) for st, rec in (again, outs[label]))
+            same_leaves(again, outs[label], f"phase 7 (c) {label}: run to run")
+            res[label] = dict(runners=len(new), ms_per_round=wall * 1e3 / steps,
+                              capture_s=[r.capture_s for r in new],
+                              whole_round_launches=grew)
+    finally:
+        placement._visible_devices = visible
+    same_leaves(outs["split"], outs["one_device"], "phase 7 (c): split vs one device")
+    res["split_vs_one_device"] = "bitwise"
+    log("split_sweep", rows=len(scen) * seeds, steps=steps, blocks=k,
+        one_device_ms_per_round=f"{res['one_device']['ms_per_round']:.4f}",
+        split_ms_per_round=f"{res['split']['ms_per_round']:.4f}",
+        whole_round_launches=launches, outputs="split bitwise one device")
+    return res, launches
+
+
 def same_leaves(a, b, label):
     """Every tensor of two trees equal bitwise (floats by their bits)."""
     import torch
@@ -2330,10 +2502,11 @@ def figure_parity_cases():
 
 
 def cpu_runs(what):
-    """The CPU side of phase 8's (``"zoo"``), phase 9's (``"figures"``) or
-    phase 10's (``"rwsgd"``) parity, run in a child process
-    (:func:`start_cpu_runs`) while the card runs the phases: one
-    :func:`sweep_groups` list per case (phase 10: :func:`rwsgd_cpu_legs`)."""
+    """The CPU side of phase 8's (``"zoo"``), phase 9's (``"figures"``),
+    phase 10's (``"rwsgd"``) or phase 15's (``"large"``) parity, run in a
+    child process (:func:`start_cpu_runs`) while the card runs the phases:
+    one :func:`sweep_groups` list per case (phase 10:
+    :func:`rwsgd_cpu_legs`; phase 15: :func:`large_window` at 1 seed)."""
     import torch
 
     from repro_torch.utils.tree import tree_leaves
@@ -2341,6 +2514,8 @@ def cpu_runs(what):
     torch.set_num_threads(CPU_THREADS)
     if what == "rwsgd":
         return rwsgd_cpu_legs()
+    if what == "large":
+        return large_window("cpu", 1)
     if what == "zoo":
         exp = zoo_experiment(ZOO["parity_steps"], "cpu")
         cases = [(exp.graph, exp.scenarios, ZOO["parity_steps"], ZOO["parity_seeds"])]
@@ -2354,15 +2529,14 @@ def cpu_runs(what):
 
 def start_cpu_runs():
     """One spawned process (it has its own executable cache and no CUDA
-    context) that computes :func:`cpu_runs` for phase 8, then phases 9 and
-    10, while the card runs phases 14 and 3-10: (pool, {what: pending
-    result});
-    the caller terminates the pool."""
+    context) that computes :func:`cpu_runs` for phase 8, then phases 9, 10
+    and 15, while the card runs phases 14 and 3-12: (pool, {what: pending
+    result}); the caller terminates the pool."""
     import multiprocessing
 
     pool = multiprocessing.get_context("spawn").Pool(1)
     return pool, {what: pool.apply_async(cpu_runs, (what,))
-                  for what in ("zoo", "figures", "rwsgd")}
+                  for what in ("zoo", "figures", "rwsgd", "large")}
 
 
 def group_parity(graph, scenarios, steps, seeds, label, cpu):
@@ -3312,14 +3486,18 @@ def same_state(got, want, label):
 def sharded_phase(seed=0):
     """Phase 12: the node-sharded step (``repro_torch.core.distributed``).
     (a) NCCL at world size 1 (a ``FileStore`` in a temp dir) on the
-    reference's production setting (``SHARDED``): ``rounds`` eager rounds,
-    ms per round over all but the first ``cpu_rounds`` (host clock ending
-    in a synchronize), Z's range, the peak device memory above what
-    earlier phases keep, and the node tables' bytes, then
-    ``SHARDED_PROFILE`` rounds under torch.profiler (kernels per round,
-    busy share, the kernels with the most device time); the state after
-    ``cpu_rounds`` rounds must be bitwise the same step on the CPU
-    (``mesh=None``). (b) ``SHARDED_RANKS``: two spawned ranks over gloo on
+    reference's production setting (``SHARDED``): ``rounds`` rounds
+    through ``run_sharded``, which over NCCL captures the round as a CUDA
+    graph and replays it; the first ``cpu_rounds`` also run eagerly
+    (``capture=False``) from the same state and must be bitwise the
+    captured ones, and bitwise the same step on the CPU (``mesh=None``).
+    Then ms per round of the captured rounds after those (host clock
+    ending in a synchronize) beside the eager loop's over
+    ``SHARDED_EAGER`` of them (Z bitwise), the capture's seconds and
+    kernel nodes, Z's range, the peak device memory above what earlier
+    phases keep, the node tables' bytes, and ``SHARDED_PROFILE`` replays
+    under torch.profiler (kernels per round, busy share, the kernels with
+    the most device time). (b) ``SHARDED_RANKS``: two spawned ranks over gloo on
     CUDA tensors (NCCL refuses two ranks on one device), started beside
     this process's world-size-1 run of the same inputs and bitwise it.
     The step runs no kernel of ``repro_torch.kernels``: their counters
@@ -3359,30 +3537,48 @@ def sharded_phase(seed=0):
             mesh = make_local_mesh(device_type="cuda")
             axes = data_axes(mesh)
             step = make_sharded_step(mesh, axes, n, pcfg)
+            if step.backend != "nccl":
+                raise AssertionError(f"phase 12 (a): the step's collectives are {step.backend}'s")
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()  # what earlier phases keep
             state, graph = shard_state(state_cpu, graph_cpu, mesh, axes, "cuda")
             head, w = S["cpu_rounds"], S["rounds"] - S["cpu_rounds"]
-            state, z_head = run_sharded(step, state, graph, head)
-            snap = ShardedProtocolState(*(x.to("cpu", copy=True) for x in state))
+            # the first rounds captured (run_sharded's default over NCCL) and
+            # eager from the same state: bitwise
+            cap, z_head = run_sharded(step, state, graph, head)
+            (runner,) = [r for (_d, captured), r in step.runners.items() if captured]
+            eager, z_eager = run_sharded(step, state, graph, head, capture=False)
+            same_state(cap, eager, f"phase 12 (a): round {head}, captured vs eager")
+            if not torch.equal(z_head, z_eager):
+                raise AssertionError("phase 12 (a): Z differs between captured and eager rounds")
+            del eager, state
+            snap = ShardedProtocolState(*(x.to("cpu", copy=True) for x in cap))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, z_tail = run_sharded(step, state, graph, w)
+            state, z_tail = run_sharded(step, cap, graph, w)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            # the eager loop's ms per round over the first of those rounds
+            t1 = time.perf_counter()
+            _, z_e = run_sharded(step, cap, graph, SHARDED_EAGER, capture=False)
+            torch.cuda.synchronize()
+            eager_s = time.perf_counter() - t1
+            if not torch.equal(z_e, z_tail[:SHARDED_EAGER]):
+                raise AssertionError("phase 12 (a): the eager window's Z differs from the "
+                                     "captured rounds'")
             z = torch.cat([z_head, z_tail]).cpu().numpy()
             peak = torch.cuda.max_memory_allocated() - base
             tables = {f: getattr(state, f).numel() * getattr(state, f).element_size()
                       for f in ("last_seen", "hist", "total")}
-            # a short profiled window: kernels per round and the busy share
+            # a short profiled window of replays: kernels per round, busy share
             seen, events, wall_us = device_launches(
                 lambda: run_sharded(step, state, graph, SHARDED_PROFILE))
             if any(seen.values()):
                 raise AssertionError(f"phase 12: the device ran the repo's kernels: {seen}")
             busy = _busy(events, wall_us, SHARDED_PROFILE)
             top = top_kernels(events, SHARDED_PROFILE, k=4)
-            del state, graph
+            del state, graph, cap
             t1 = time.perf_counter()
             cpu, z_cpu = run_sharded(make_sharded_step(None, ("data",), n, pcfg), state_cpu,
                                      graph_cpu, head)
@@ -3395,11 +3591,14 @@ def sharded_phase(seed=0):
             res["full_width"] = dict(
                 n=n, degree=S["degree"], max_walks=S["max_walks"], rt_bins=S["rt_bins"],
                 rounds=S["rounds"], timed_rounds=w, ms_per_round=wall * 1e3 / w,
+                eager_rounds=SHARDED_EAGER, eager_ms_per_round=eager_s * 1e3 / SHARDED_EAGER,
+                capture_s=runner.capture_s,
+                graph_kernel_nodes=runner.captured.kernel_nodes,
                 z_min=int(z.min()), z_max=int(z.max()), z_final=int(z[-1]),
                 peak_memory_mb=peak / 1e6, table_mb={k: v / 1e6 for k, v in tables.items()},
                 profiled_rounds=SHARDED_PROFILE, kernels_per_round=busy["kernels_per_step"],
                 kernel_ms_per_round=busy["kernel_ms_per_step"], busy_share=busy["busy_share"],
-                top_kernels_ms_per_round=top,
+                top_kernels_ms_per_round=top, captured_vs_eager="bitwise",
                 cpu_rounds=head, cpu_s=cpu_s, cuda_vs_cpu="bitwise", backend="nccl", world=1)
             log("sharded", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
                               for k, v in res["full_width"].items()})
@@ -3438,6 +3637,124 @@ def sharded_phase(seed=0):
     return res
 
 
+def large_experiment(n, steps, device):
+    """Phase 15's cell on ``device``: SHARDED's protocol through the
+    Experiment API (``round_impl="auto"``: the fused round) on a Cayley
+    graph of ``n`` nodes with ``LARGE_CHURN``."""
+    from repro_torch.api import Experiment
+    from repro_torch.core import FailureConfig, ProtocolConfig
+
+    S = SHARDED
+    pcfg = ProtocolConfig(algorithm="decafork+", z0=S["z0"], max_walks=S["max_walks"],
+                          eps=S["eps"], eps2=S["eps2"], rt_bins=S["rt_bins"],
+                          estimator_impl="auto", round_impl="auto")
+    return Experiment(graph=cayley_graph(n, S["degree"], 0), protocol=pcfg,
+                      failures=FailureConfig(**LARGE_CHURN), steps=steps, outputs="full",
+                      device=device)
+
+
+def large_window(device, seeds):
+    """Phase 15's window: ``LARGE["window"]`` rounds at n ``window_n`` of
+    the first ``seeds`` rows of the 8-seed ensemble's keys on ``device``:
+    (each final-state tensor's row 0 as (shape, dtype, SHA-256 of its
+    bytes), {field: row 0 of the outputs on the CPU}). The digests stand
+    for the tables (~600 MB at that n), which need not cross the process
+    boundary to be compared bit for bit."""
+    import hashlib
+
+    from repro_torch.utils import prng
+    from repro_torch.utils.tree import tree_leaves
+
+    plan = large_experiment(LARGE["window_n"], LARGE["window"], device).plan()
+    keys = prng.split(prng.key(0, device=device), LARGE["seeds"])[:seeds]
+    final, rec = plan._execute("ensemble", keys, plan._setup(seeds), plan.fcfg, plan.decision)
+
+    def digest(x):
+        x = x[:1].cpu().contiguous()
+        return tuple(x.shape), str(x.dtype), hashlib.sha256(x.numpy().tobytes()).hexdigest()
+
+    return ([digest(x) for x in tree_leaves(final)],
+            {f: getattr(rec, f)[:1].cpu() for f in rec._fields})
+
+
+def large_graph_phase(cpu):
+    """Phase 15: the large-graph main path (``LARGE``). ``Experiment(...)
+    .ensemble(8)`` at n 1,048,576 on cuda, captured: the decision must be
+    the fused round, the captured round must hold one whole_round node,
+    whole_round must launch once per replayed round plus the capture's
+    warm-up round, Z must stay in [1, W] and theta_mean finite; ms per
+    round of the replays (capture apart), trajectory-rounds/s, peak
+    memory. Then the window at n 262,144 on cuda, row 0 against ``cpu``
+    (the pending CPU run of the same inputs at 1 seed): integer outputs
+    and the final carry bitwise, theta_mean within 1e-6. Returns the
+    result and whole_round's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import plan as plan_mod
+    from repro_torch.kernels import whole_round
+
+    L = LARGE
+    exp = large_experiment(L["n"], L["rounds"], "cuda")
+    (_, _, decision), = exp.plan().round_decisions()
+    if not decision.fused:
+        raise AssertionError(f"phase 15 did not fuse: {decision.reason}")
+    slots = set(plan_mod._EXECUTABLES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = whole_round.launches
+    t0 = time.perf_counter()
+    outs = exp.ensemble(L["seeds"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    runner = new_runner(slots)
+    graph_launches(runner, "phase 15", {"whole_round": 1})
+    launches = whole_round.launches - before
+    if launches != L["rounds"] + 1:
+        raise AssertionError(f"phase 15: whole_round launched {launches} times for "
+                             f"{L['rounds']} replays x 1 graph node and the warm-up round")
+    z = outs.z.cpu().numpy()
+    if z.shape != (L["seeds"], L["rounds"]) or not 1 <= z.min() <= z.max() <= SHARDED["max_walks"]:
+        raise AssertionError(f"phase 15: Z {z.shape} in {z.min()}..{z.max()}")
+    if not np.isfinite(outs.theta_mean.cpu().numpy()).all():
+        raise AssertionError("phase 15: non-finite theta_mean")
+    replay_s = wall - runner.capture_s
+    res = dict(n=L["n"], degree=SHARDED["degree"], max_walks=SHARDED["max_walks"],
+               rt_bins=SHARDED["rt_bins"], seeds=L["seeds"], rounds=L["rounds"], wall_s=wall,
+               capture_s=runner.capture_s, ms_per_round=replay_s * 1e3 / L["rounds"],
+               trajectory_rounds_per_s=L["seeds"] * L["rounds"] / replay_s,
+               peak_memory_gb=peak / 1e9, graph_kernel_nodes=runner.graph.kernel_nodes,
+               whole_round_launches=launches, z_min=int(z.min()), z_max=int(z.max()),
+               forks=int(outs.forks.sum()), terms=int(outs.terms.sum()),
+               failures=int(outs.failures.sum()))
+    del outs, runner, exp
+    plan_mod.clear_cache()  # the 1,048,576-node slot's static state (~20 GB)
+    torch.cuda.empty_cache()
+    log("large", **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in res.items()})
+
+    before = whole_round.launches
+    gs, go = large_window("cuda", L["seeds"])
+    launches += whole_round.launches - before
+    ws, wo = cpu.get(timeout=CPU_TIMEOUT_S)
+    if gs != ws:
+        raise AssertionError("phase 15 window: the final carry's row 0 differs from the CPU's")
+    for f in INT_FIELDS:
+        same_leaves((go[f],), (wo[f],), f"phase 15 window: {f}")
+    np.testing.assert_allclose(go["theta_mean"].numpy(), wo["theta_mean"].numpy(),
+                               rtol=1e-6, atol=1e-6)
+    if int(wo["forks"].sum()) == 0:
+        raise AssertionError("phase 15 window: no fork in the compared rounds")
+    res["window"] = dict(n=L["window_n"], rounds=L["window"], seeds_on_cuda=L["seeds"],
+                         cpu_rows=1, cuda_vs_cpu="bitwise", forks=int(wo["forks"].sum()),
+                         failures=int(wo["failures"].sum()))
+    log("large", window=repr(res["window"]))
+    plan_mod.clear_cache()
+    torch.cuda.empty_cache()
+    return res, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=MAIN_STEPS,
@@ -3466,6 +3783,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
+        from repro_torch.api import plan as plan_mod
         from repro_torch.graphs import make_graph
         from repro_torch.kernels import KERNELS, _build
     except ImportError as exc:
@@ -3544,6 +3862,9 @@ def main() -> int:
         lap("7 sweep")
         sweep["parity"] = sweep_parity(graph)
         lap("7 sweep parity")
+        sweep["split"], split_launches = split_sweep(graph)
+        counts["whole_round"] += split_launches
+        lap("7 split sweep")
         if args.zoo_steps < ZOO["steps"]:
             log("zoo", cut=f"steps {args.zoo_steps} of Fig. 9's {ZOO['steps']}; n, W, B, seeds "
                            "uncut")
@@ -3565,18 +3886,25 @@ def main() -> int:
         payload, payload_counts = payload_phase(
             args.rwsgd_steps, RWSGD["seeds"], cpu["rwsgd"],
             os.path.join(ROOT, "chiprun_out", "figures_smoke"))
+        for k, v in payload_counts.items():
+            counts[k] += v
+        lap("10 payload")
+        durable, counts_11 = durable_phase(graph, args.steps, main_res["decafork"])
+        main_res["decafork"].pop("outs")
+        counts["whole_round"] += counts_11
+        lap("11 durable")
+        sharded = sharded_phase()
+        lap("12 sharded")
+        # phases 3-11's cache slots are done with; phase 15's state needs the room
+        plan_mod.clear_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+        large, counts_15 = large_graph_phase(cpu["large"])
+        counts["whole_round"] += counts_15
+        lap("15 large graph")
     finally:
         pool.terminate()
         pool.join()
-    for k, v in payload_counts.items():
-        counts[k] += v
-    lap("10 payload")
-    durable, counts_11 = durable_phase(graph, args.steps, main_res["decafork"])
-    main_res["decafork"].pop("outs")
-    counts["whole_round"] += counts_11
-    lap("11 durable")
-    sharded = sharded_phase()
-    lap("12 sharded")
     families, family_counts = families_phase("cuda")
     for k, v in family_counts.items():
         counts[k] += v
@@ -3595,7 +3923,7 @@ def main() -> int:
                   main=main_res, profile=profile, parity=parity, unfused=unfused,
                   captured_vs_eager=captured, serve=serve, sweep=sweep, zoo=zoo,
                   figures=figures, payload=payload, durable=durable, sharded=sharded,
-                  families=families, train=training, phase_s=phase_s)
+                  large_graph=large, families=families, train=training, phase_s=phase_s)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(detail, fh, indent=1)

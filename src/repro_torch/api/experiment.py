@@ -42,8 +42,10 @@ class Experiment:
     failure-free); steps; scenarios (``Scenario`` / ``(pcfg, fcfg)``
     rows, the default list of ``sweep``); outputs (``None`` /
     ``'scalars'`` / ``'full'`` / an OutputSpec / field names);
-    placement (``'auto'`` / ``'local'`` / ``'sharded'``: on one device
-    all three keep the rows where they are); device;
+    placement (``'auto'`` / ``'local'`` / ``'sharded'``: how a sweep's
+    groups spread their scenarios over the visible cards,
+    ``api/placement.py``; on one device all three keep the rows where
+    they are); device;
     partitionable; name; payload (a ``core.payload.Payload``, e.g.
     ``optim.RwSgdPayload``: the workload the walks carry, one carry per
     trajectory row). With a payload, ``outputs=None`` records every

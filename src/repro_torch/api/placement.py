@@ -1,12 +1,23 @@
 """Device placement of a sweep's rows (counterpart of the JAX package's
-``api/placement.py``, for one device).
+``api/placement.py``).
 
-``"auto"`` and ``"local"`` keep every row on the Experiment's device.
-``"sharded"`` spreads the rows over the visible devices, as the
-reference's policy does: on one device (one card, or the CPU) they stay
-where they are, exactly as ``"local"``. Rows over several cards are not
-ported yet (ROADMAP.md queue 1, item 17) and raise. The node-sharded
-step itself is ``repro_torch.core.distributed``.
+The reference places a group's stacked scenario leaves across the local
+mesh's ``data`` axis; here a group's scenarios are split into contiguous
+blocks, one per visible device, each block run by its own runner on its
+device (``api/plan.py``):
+
+  ``"auto"``     spread when more than one device is visible and their
+                 number divides the group's scenario count; otherwise
+                 stay on the Experiment's device (correctness never
+                 depends on placement).
+  ``"sharded"``  spread, and raise when the count does not divide (the
+                 reference's message); on one device the rows stay where
+                 they are.
+  ``"local"``    never spread.
+
+The visible devices of a CUDA Experiment are every card of the process
+(``torch.cuda.device_count()``); a CPU Experiment has one. The
+node-sharded step itself is ``repro_torch.core.distributed``.
 """
 from __future__ import annotations
 
@@ -17,6 +28,14 @@ import torch
 __all__ = ["Placement"]
 
 _POLICIES = ("auto", "sharded", "local")
+
+
+def _visible_devices(device: torch.device) -> list:
+    """The devices a sweep of an Experiment on ``device`` may spread
+    over: every card for a CUDA device, else ``device`` alone."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,15 +66,25 @@ class Placement:
             f"got {value!r}"
         )
 
-    def place(self, device: torch.device) -> torch.device:
-        """The device a sweep's rows live on."""
-        if (self.policy == "sharded" and torch.device(device).type == "cuda"
-                and torch.cuda.device_count() > 1):
-            raise NotImplementedError(
-                "placement='sharded' over several cards is not ported yet "
-                "(ROADMAP.md queue 1, item 17: sweep rows over several cards)"
-            )
-        return device
+    def devices(self, device, n_scenarios: int) -> list:
+        """The devices a group of ``n_scenarios`` scenarios of an
+        Experiment on ``device`` runs on, one contiguous block of
+        scenarios each: ``[device]`` when the rows stay put."""
+        device = torch.device(device)
+        if self.policy == "local":
+            return [device]
+        visible = _visible_devices(device)
+        if len(visible) == 1:
+            return [device]
+        if n_scenarios % len(visible):
+            if self.policy == "sharded":
+                raise ValueError(
+                    f"placement='sharded' but {n_scenarios} scenarios do not "
+                    f"divide the data axis ({len(visible)} devices); "
+                    "pad the scenario list or use Placement.AUTO"
+                )
+            return [device]
+        return visible
 
 
 Placement.AUTO = Placement("auto")

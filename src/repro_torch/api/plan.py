@@ -34,6 +34,8 @@ run of one structure share one slot and a segment captures nothing.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import threading
 import warnings
 from typing import Sequence, Tuple
@@ -83,6 +85,7 @@ def plan_signature(
     decision: sim.RoundDecision,
     payload=None,
     pspec=None,
+    shard: tuple | None = None,
 ) -> tuple:
     """Hashable static signature of one runner.
 
@@ -94,9 +97,11 @@ def plan_signature(
     failure config's static fields; then what the reference's arrays
     carry in their avals and placement: the batch (rows), the device and
     the threefry layout; and the round decision that ``"auto"`` resolved
-    to. Numeric leaves (keys, eps grids, rates, schedules, the graph's
-    tensors) deliberately do not appear: they are copied into the
-    runner's static inputs and re-run without a new capture.
+    to. A block of a sweep spread over several devices adds ``shard``,
+    its (index, count), so each block has a runner of its own even where
+    devices repeat. Numeric leaves (keys, eps grids, rates, schedules,
+    the graph's tensors) deliberately do not appear: they are copied into
+    the runner's static inputs and re-run without a new capture.
     """
     return (
         mode,
@@ -114,7 +119,7 @@ def plan_signature(
         torch.device(device),
         partitionable,
         decision,
-    )
+    ) + (() if shard is None else (("shard",) + tuple(shard),))
 
 
 def executable(mode: str, signature: tuple, build):
@@ -157,6 +162,23 @@ def _schedule_lens(fcfg) -> tuple:
     return (fcfg.n_bursts, fcfg.n_node_crashes, fcfg.n_pacman, fcfg.n_edge_cuts)
 
 
+def _cat_rows(parts: list, device):
+    """The trees of ``parts`` (the blocks of a spread sweep: states,
+    carries, outputs) joined along their leading row axis on ``device``."""
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat([p.to(device) for p in parts])
+    if isinstance(first, RecordedOutputs):
+        return RecordedOutputs(first._fields, tuple(
+            _cat_rows([p[i] for p in parts], device) for i in range(len(first))))
+    if isinstance(first, dict):
+        return {k: _cat_rows([p[k] for p in parts], device) for k in first}
+    if isinstance(first, tuple):
+        vals = [_cat_rows([p[i] for p in parts], device) for i in range(len(first))]
+        return type(first)(*vals) if hasattr(first, "_fields") else tuple(vals)
+    return first
+
+
 def _as_key(key, device) -> torch.Tensor:
     if isinstance(key, int):
         return prng.key(key, device=device)
@@ -193,7 +215,7 @@ class Plan:
         self.spec = experiment._spec
         self.pspec = experiment._pspec
         self.payload = experiment.payload
-        self.device = experiment.placement.place(experiment.device)
+        self.device = experiment.device
         self.partitionable = experiment.partitionable
         self.pcfg = experiment.protocol
         self.fcfg = experiment.failures
@@ -219,24 +241,30 @@ class Plan:
                 "scenarios)"
             )
 
-    def _signature(self, mode: str, pcfg, fcfg, decision, batch: int) -> tuple:
-        """The runner signature of ``batch`` rows of this structure (the
-        padded ``fcfg`` carries the group's schedule widths)."""
+    def _signature(self, mode: str, pcfg, fcfg, decision, batch: int, device=None,
+                   shard: tuple | None = None) -> tuple:
+        """The runner signature of ``batch`` rows of this structure on
+        ``device`` (default the plan's; the padded ``fcfg`` carries the
+        group's schedule widths)."""
         return plan_signature(
             mode, self.graph.n, int(self.graph.neighbors.shape[1]), self.steps, pcfg,
             _schedule_lens(fcfg), self.spec, fcfg.static_fields, batch=batch,
-            device=self.device, partitionable=self.partitionable, decision=decision,
-            payload=self.payload, pspec=self.pspec,
+            device=self.device if device is None else device,
+            partitionable=self.partitionable, decision=decision,
+            payload=self.payload, pspec=self.pspec, shard=shard,
         )
 
     def _execute(self, mode: str, keys, setup: sim.Setup, fcfg, decision, *,
-                 segment_steps: int | None = None, store=None, skey: str | None = None):
+                 segment_steps: int | None = None, store=None, skey: str | None = None,
+                 shard: tuple | None = None):
         """``setup.steps`` rounds from the initial state of ``keys``
-        through the cached runner of this structure, straight or in
-        segments (:meth:`_drive_segments`)."""
+        through the cached runner of this structure (a spread block's on
+        its keys' device), straight or in segments
+        (:meth:`_drive_segments`)."""
         if self.payload is not None:
             self.payload.validate(setup.pcfg)
-        sig = self._signature(mode, setup.pcfg, fcfg, decision, int(keys.shape[0]))
+        sig = self._signature(mode, setup.pcfg, fcfg, decision, int(keys.shape[0]),
+                              None if shard is None else keys.device, shard)
         runner = executable(mode, sig, lambda: sim.RoundRunner(
             setup, self.spec, decision, self.payload, self.pspec))
         if segment_steps is None:
@@ -284,7 +312,7 @@ class Plan:
         steps = self.steps
         done, recorded = 0, None
         found = None if store is None else store.latest_segment(
-            skey, max_steps=steps, device=self.device)
+            skey, max_steps=steps, device=keys.device)
         if found is not None:
             done, snap = found
             (state, carry), recorded = snap["carry"], snap["recorded"]
@@ -423,19 +451,56 @@ class Plan:
         SimState, RecordedOutputs)``, both with ``S * seeds`` rows,
         scenario-major (with a payload ``((state, carry), (outputs,
         payload outputs))``); with ``segment_steps``, in segments, their
-        snapshots in ``store`` under ``skey``."""
+        snapshots in ``store`` under ``skey``.
+
+        Where the placement spreads the group (``api/placement.py``), the
+        scenarios go in contiguous blocks, one per device, each through
+        its own runner (its own cache slot); on cards each block runs in
+        a host thread of its own, so the cards run at once. Every block
+        gives its scenarios the ensemble's keys, and the blocks' results
+        are gathered on the plan's device in row order, bitwise the
+        one-device batch."""
         group = self._group(scenarios, seeds, base_key)
         S = len(scenarios)
-        keys = prng.split(_as_key(base_key, self.device), seeds,
-                          partitionable=self.partitionable)
+        devices = self.experiment.placement.devices(self.device, S)
+        seg = dict(segment_steps=segment_steps, store=store)
+        if len(devices) == 1:
+            return self._sweep_block(group, 0, S, seeds, base_key, self.device, skey=skey,
+                                     **seg)
+        k, per = len(devices), S // len(devices)
+
+        def block(i):
+            dev = devices[i]
+            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                return self._sweep_block(
+                    group, i * per, (i + 1) * per, seeds, base_key, dev, shard=(i, k),
+                    skey=None if skey is None else f"{skey}-{i}of{k}", **seg)
+
+        if all(d.type == "cuda" for d in devices):  # one host thread per card
+            with concurrent.futures.ThreadPoolExecutor(k) as pool:
+                parts = list(pool.map(block, range(k)))
+        else:  # CPU blocks in turn: their ops already spread over the cores
+            parts = [block(i) for i in range(k)]
+        if segment_steps is not None and store is not None and skey is not None:
+            for i in range(k):  # the caller stores the whole group's result under skey
+                store.clear_segments(f"{skey}-{i}of{k}")
+        # each block's work is on its device's current stream, which the
+        # copies below wait for
+        return _cat_rows(parts, self.device)
+
+    def _sweep_block(self, group: dict, lo: int, hi: int, seeds: int, base_key, device, *,
+                     shard: tuple | None = None, segment_steps=None, store=None, skey=None):
+        """Scenarios ``[lo, hi)`` of ``group`` as ``(hi - lo) * seeds`` rows
+        on ``device`` (:meth:`sweep_group`'s result for them)."""
+        keys = prng.split(_as_key(base_key, device), seeds, partitionable=self.partitionable)
         setup = sim.make_setup(
-            self.graph, [p for p in group["pcfgs"] for _ in range(seeds)],
-            [f for f in group["fcfgs"] for _ in range(seeds)], self.steps, self.device,
+            self.graph, [p for p in group["pcfgs"][lo:hi] for _ in range(seeds)],
+            [f for f in group["fcfgs"][lo:hi] for _ in range(seeds)], self.steps, device,
             self.partitionable,
         )
-        return self._execute("sweep", keys.repeat(S, 1), setup, group["fcfgs"][0],
+        return self._execute("sweep", keys.repeat(hi - lo, 1), setup, group["fcfgs"][0],
                              group["decision"], segment_steps=segment_steps, store=store,
-                             skey=skey)
+                             skey=skey, shard=shard)
 
     def sweep(self, scenarios: Sequence | None = None, *, seeds: int, base_key=0,
               store=None, segment_steps: int | None = None) -> SweepResult:

@@ -24,10 +24,20 @@ So a round has two collectives, ``all_reduce(SUM)`` of int32 over the
 O(W) walk axis: their bytes do not grow with the graph. Integer sums
 give the same bits in any order, so a run at any world size is bitwise
 the one-shard run. A rank's node tables are updated in place.
+
+:func:`run_sharded` runs rounds through a :class:`ShardedRunner`, the
+counterpart of the reference's ``jax.jit(step)``: on CUDA tensors whose
+collectives are NCCL's (or that have none, ``mesh=None``) one round is
+captured as a CUDA graph and replayed once a round; gloo's collectives
+do not capture, so runs over gloo (the CPU, or two ranks on one card)
+run the same round eagerly through the same static buffers.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Sequence
+
+import threading
+import time
 
 import numpy as np
 import torch
@@ -38,10 +48,12 @@ from repro_torch.core import protocol as prt
 from repro_torch.core import walkers as wlk
 from repro_torch.graphs.state import availability_rows
 from repro_torch.utils import prng
+from repro_torch.utils.tree import copy_into, tree_clone
 
 __all__ = [
     "ShardedGraph",
     "ShardedProtocolState",
+    "ShardedRunner",
     "gather_state",
     "init_sharded_state",
     "make_sharded_step",
@@ -117,8 +129,12 @@ def make_sharded_step(mesh, node_axes: Sequence[str], n_nodes: int,
     lo, n_local = _rows(n_nodes, mesh, axes)
     groups = () if mesh is None else tuple(mesh.get_group(a) for a in axes)
     decafork_plus = pcfg.algorithm == "decafork+"
-    consts_by_device = {}
+    consts_by_device = {}  # device -> the decision rows
+    tags_by_device = {}  # device -> the two stream tags
     folded = [None]  # (key, its version, fold_in(key, _TAGS))
+    # the collectives' backend (None: no collective); it decides whether
+    # run_sharded captures the round
+    backend = None if not groups else dist.get_backend(groups[0])
 
     def psum(x):
         # a sum over ("pod", "data") is the sum over each axis in turn
@@ -129,6 +145,27 @@ def make_sharded_step(mesh, node_axes: Sequence[str], n_nodes: int,
     def on_shard(pos, active):
         local = active & (pos >= lo) & (pos < lo + n_local)
         return local, torch.clamp(pos - lo, 0, n_local - 1).long()
+
+    def key_folds(key):
+        """``fold_in(key, tag)`` for the two stream tags. fold_in_time(key,
+        t, tag) = fold_in(fold_in(key, tag), t): the inner fold depends on
+        the key alone, which the step returns unchanged, so it is hashed
+        once per key (a new key tensor, or one written in place, is hashed
+        again). A new key's folds are written into the same tensor, so a
+        captured round that reads them sees them once this has run
+        outside the capture (:class:`ShardedRunner` calls it at each
+        run)."""
+        f = folded[0]
+        if f is None or f[0] is not key or f[1] != key._version:
+            tags = tags_by_device.get(key.device)
+            if tags is None:
+                tags = tags_by_device[key.device] = torch.tensor(_TAGS, dtype=torch.int64,
+                                                                 device=key.device)
+            new = prng.fold_in(key, tags)
+            if f is not None and f[2].device == new.device:
+                new = f[2].copy_(new)
+            folded[0] = (key, key._version, new)
+        return folded[0][2]
 
     def step(t, pos, active, track, last_seen, hist, total, key,
              neighbors, degrees, node_up, edge_up):
@@ -145,18 +182,10 @@ def make_sharded_step(mesh, node_axes: Sequence[str], n_nodes: int,
         # edges of the walk's row (gathered first: availability is
         # elementwise, so the W visited rows give the full table's values)
         consts = consts_by_device.get(dev)
-        if consts is None:  # the decision rows and the two stream tags
-            consts = consts_by_device[dev] = (
-                prt.protocol_rows([pcfg], dev),
-                torch.tensor(_TAGS, dtype=torch.int64, device=dev))
-        rows, tags = consts
-        # fold_in_time(key, t, tag) = fold_in(fold_in(key, tag), t): the
-        # inner fold depends on the key alone, which the step returns
-        # unchanged, so it is hashed once per key (a new key tensor, or one
-        # written in place, is hashed again)
-        if folded[0] is None or folded[0][0] is not key or folded[0][1] != key._version:
-            folded[0] = (key, key._version, prng.fold_in(key, tags))
-        k_move, k_dec = prng.fold_in(folded[0][2], t)  # both streams in one pass
+        if consts is None:  # the decision rows
+            consts = consts_by_device[dev] = prt.protocol_rows([pcfg], dev)
+        rows = consts
+        k_move, k_dec = prng.fold_in(key_folds(key), t)  # both streams in one pass
         u = prng.uniform(k_move, (W,), partitionable=partitionable)
         nbrs = neighbors[lpos]  # (W, D)
         row_mask = availability_rows(edge_up[lpos], node_up[lo + lpos],
@@ -220,6 +249,9 @@ def make_sharded_step(mesh, node_axes: Sequence[str], n_nodes: int,
         z = active.sum(dtype=torch.int32)
         return t + 1, pos, active, track, last_seen, hist, total, key, z
 
+    step.backend = backend
+    step.key_folds = key_folds
+    step.runners = {}  # (device, capture) -> ShardedRunner, for run_sharded
     return step
 
 
@@ -285,13 +317,102 @@ def gather_state(state: ShardedProtocolState, mesh,
     return ShardedProtocolState(**out)
 
 
-def run_sharded(step, state: ShardedProtocolState, graph: ShardedGraph, rounds: int):
-    """``rounds`` steps from ``state``; returns (final state, Z per round
-    as an int32 tensor on the state's device). No host synchronisation."""
-    zs = []
-    for _ in range(rounds):
-        *st, z = step(*state, *graph)
-        state = ShardedProtocolState(*st)
-        zs.append(z)
-    return state, torch.stack(zs) if zs else torch.zeros(0, dtype=torch.int32)
+RECORD_CHUNK = 256  # rounds of Z a runner records in place between copies out
 
+
+class ShardedRunner:
+    """Rounds of one sharded ``step`` on static buffers: the state and the
+    graph of a run are copied into tensors the runner owns, and Z is
+    recorded in place at a device-side column, so the round index never
+    passes through Python. With ``capture`` (CUDA tensors, NCCL's
+    collectives or none) one round is captured as a CUDA graph at the
+    first run and replayed once a round; the device ``t`` advances inside
+    the graph. Without it the same round runs eagerly through the same
+    buffers. The capture's warm-up runs one real round on throwaway
+    copies on the capture's side stream (NCCL's communicator, the step's
+    constant rows and the key's folds are made there, outside the
+    capture). A failed capture or replay raises; nothing falls back to
+    eager."""
+
+    def __init__(self, step, capture: bool):
+        self.step, self.capture = step, capture
+        self.state = self.graph = None  # static buffers, made at the first run
+        self.z = self.column = None
+        self.captured = None
+        self.capture_s = None  # host seconds of the warm-up and capture
+        self.lock = threading.Lock()
+
+    def _round(self) -> None:
+        *st, z = self.step(*self.state, *self.graph)
+        for d, s in zip(self.state, st):
+            if d is not s:  # the node tables and the key are updated in place
+                d.copy_(s)
+        self.z.index_copy_(0, self.column, z.view(1))
+        self.column.add_(1)
+
+    def _warmup(self) -> None:
+        self.step(*tree_clone(self.state), *self.graph)
+        self.step.key_folds(self.state.key)
+
+    def run(self, state: ShardedProtocolState, graph: ShardedGraph, rounds: int):
+        """``rounds`` rounds from ``state``: (final state, Z per round as an
+        int32 tensor on the state's device); neither aliases the runner's
+        buffers. No host synchronisation."""
+        with self.lock:
+            if self.state is None:
+                self.state, self.graph = tree_clone(state), tree_clone(graph)
+                dev = state.pos.device
+                self.z = torch.zeros((RECORD_CHUNK,), dtype=torch.int32, device=dev)
+                self.column = torch.zeros((1,), dtype=torch.int64, device=dev)
+            else:
+                copy_into((self.state, self.graph), (state, graph))
+            if self.capture and self.captured is None:
+                # imported here: repro_torch.kernels imports this package
+                from repro_torch.kernels.capture import Captured
+
+                t0 = time.perf_counter()
+                self.captured = Captured(self._round, warmup=self._warmup)
+                self.capture_s = time.perf_counter() - t0
+            self.step.key_folds(self.state.key)  # a new key's folds, before any replay
+            zs = []
+            for c0 in range(0, rounds, RECORD_CHUNK):
+                n = min(RECORD_CHUNK, rounds - c0)
+                self.column.zero_()
+                if self.capture:
+                    self.captured.replay(n)
+                else:
+                    for _ in range(n):
+                        self._round()
+                zs.append(self.z[:n].clone())
+            z = torch.cat(zs) if zs else torch.zeros(0, dtype=torch.int32,
+                                                     device=self.z.device)
+            return tree_clone(self.state), z
+
+
+def run_sharded(step, state: ShardedProtocolState, graph: ShardedGraph, rounds: int, *,
+                capture: bool | None = None):
+    """``rounds`` steps from ``state`` through the step's
+    :class:`ShardedRunner` for the state's device; returns (final state,
+    Z per round as an int32 tensor on the state's device). No host
+    synchronisation.
+
+    ``capture=None`` captures exactly when the collectives can be: CUDA
+    tensors and NCCL's backend (or no collective, ``mesh=None``); over
+    gloo (the CPU, or two ranks on one card) the rounds run eagerly.
+    ``capture=False`` runs eagerly anywhere (the oracle a captured run is
+    held to); ``capture=True`` where the rounds cannot be captured
+    raises."""
+    dev = state.pos.device
+    capturable = dev.type == "cuda" and step.backend in (None, "nccl")
+    if capture is None:
+        capture = capturable
+    elif capture and not capturable:
+        why = (f"its collectives are {step.backend}'s, which do not capture"
+               if step.backend not in (None, "nccl") else f"its tensors are on the {dev.type}")
+        raise ValueError("a sharded round captures only on CUDA tensors over NCCL (or with no "
+                         f"collective), and {why}: pass capture=False")
+    key = (dev, bool(capture))
+    runner = step.runners.get(key)
+    if runner is None:
+        runner = step.runners[key] = ShardedRunner(step, bool(capture))
+    return runner.run(state, graph, rounds)

@@ -11,17 +11,24 @@
 // Bound: at the paper's scale (n = 100, W = 64, B = 1024, batch = 50) a
 // round moves about 6 MB and does a few million simple operations, so
 // its bound is about 2 us of bytes; the kernel is limited by the
-// latency of its dependent phases, not by bytes or operations.
+// latency of its dependent phases, not by bytes or operations. On large
+// graphs (n in the hundreds of thousands and up) the topology pass's
+// bytes lead: 10 an edge and 11 a node per trajectory.
 //
-// Design: one CTA of 1,024 threads per trajectory (grid = batch). The
-// TPU kernel carries the walk state and the theta accumulator from one
-// grid step to the next; CUDA blocks run in parallel in no order, so that
-// carry becomes phases inside the CTA, separated by __syncthreads(): (1)
-// topology over (n, D) and (n,), (2) walk epilogue over W, (3)
-// observation, with each slot's leader (the lowest slot at its node) and
-// the choose, (4) theta once per distinct occupied row, (5) decisions.
-// Phase (4) dominates when a warp walks its rows' histograms in
-// dependent load-scan steps (85 % of an 8-warp kernel on an H100, by
+// Design: two launches on one stream. (1) The topology pass, node-tiled:
+// a grid of (node tiles of 256, batch), one thread per node and then per
+// edge of its tile's rows, writes node_out and edge_out, as the Pallas
+// kernel's phase 0 does for each node tile. (2)-(5) run in one CTA of
+// 1,024 threads per trajectory (grid = batch), reading node liveness
+// from node_out in global memory (L2), so its shared memory is O(W) and
+// does not grow with n: any n runs. The TPU kernel carries the walk
+// state and the theta accumulator from one grid step to the next; CUDA
+// blocks run in parallel in no order, so that carry becomes phases
+// inside the CTA, separated by __syncthreads(): (2) walk epilogue over
+// W, (3) observation, with each slot's leader (the lowest slot at its
+// node) and the choose, (4) theta once per distinct occupied row, (5)
+// decisions. Phase (4) dominates when a warp walks its rows' histograms
+// in dependent load-scan steps (85 % of an 8-warp kernel on an H100, by
 // clock64 stamps at its barriers), so each distinct row gets a warp of
 // its own (32 warps; theta is a function of the row, so slots that share
 // a node share it), and the warp reads the row in one pass (survival.cuh,
@@ -30,9 +37,7 @@
 // the other slots. The hop builds its row's availability as a bit mask
 // with the chunk's loads in flight together, and every slot input is
 // loaded at the kernel's start. The one-hot / compare tricks of the TPU
-// kernel are gone: gathers, atomicMax and ballots are cheap here. Large
-// graphs (n in the tens of thousands) want a node-tiled grid for phase
-// (1) instead of one CTA per trajectory; that is left to a later change.
+// kernel are gone: gathers, atomicMax and ballots are cheap here.
 #include <math.h>
 
 #include "survival.cuh"
@@ -40,6 +45,7 @@
 namespace {
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
+constexpr int kTopoNodes = 256;  // nodes (and threads) of a topology tile
 
 struct Round {
   // observation state, updated in place: (batch, n, C) / (batch, n, B) / (batch, n)
@@ -87,7 +93,7 @@ struct Round {
 // an edge up and both ends up, over the row's first deg slots. The row's
 // neighbour ids and edge states load unconditionally (the row holds D of
 // each), so a chunk's loads are in flight together.
-__device__ __forceinline__ unsigned avail_bits(const uint8_t* s_node, const int* nb,
+__device__ __forceinline__ unsigned avail_bits(const uint8_t* node, const int* nb,
                                                const uint8_t* eu, int deg, int D, int k0) {
   unsigned m = 0;
 #pragma unroll 8
@@ -96,7 +102,7 @@ __device__ __forceinline__ unsigned avail_bits(const uint8_t* s_node, const int*
     if (k >= D) break;
     const int v = nb[k];
     const bool up = eu[k];
-    if (k < deg && up && s_node[v]) m |= 1u << j;
+    if (k < deg && up && node[v]) m |= 1u << j;
   }
   return m;
 }
@@ -127,6 +133,30 @@ __device__ __forceinline__ Slot load_slot(const Round& a, size_t bw, int w) {
   return s;
 }
 
+// (1) topology for one tile of kTopoNodes nodes of one trajectory: node
+// crash / recovery, then symmetrized link fail / recovery over the
+// tile's rows of (n, D), which are contiguous.
+__global__ void __launch_bounds__(kTopoNodes) whole_round_topology_kernel(Round a) {
+  const int b = blockIdx.y;
+  const int n = a.n, D = a.D;
+  const int i0 = blockIdx.x * kTopoNodes;
+  const float* pf = a.pf + b * 8;
+  const float p_nfail = pf[1], p_lfail = pf[2], p_nrec = pf[3], p_lrec = pf[4];
+  const size_t bn = static_cast<size_t>(b) * n;
+  const int i = i0 + threadIdx.x;
+  if (i < n) {
+    const bool up = a.node_up[bn + i];
+    const bool crash = a.u_nfail[bn + i] < p_nfail;
+    const bool recov = a.u_nrec[bn + i] < p_nrec;
+    const bool sched = a.sched[bn + i];
+    a.node_out[bn + i] = up ? !(crash || sched) : (recov && !sched);
+  }
+  const size_t e1 = (bn + min(i0 + kTopoNodes, n)) * D;
+  for (size_t k = (bn + i0) * D + threadIdx.x; k < e1; k += kTopoNodes) {
+    a.edge_out[k] = a.edge_up[k] ? !(a.e_fail[k] < p_lfail) : (a.e_rec[k] < p_lrec);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads) whole_round_kernel(Round a) {
   extern __shared__ int smem[];
   const int b = blockIdx.x;
@@ -141,13 +171,10 @@ __global__ void __launch_bounds__(kThreads) whole_round_kernel(Round a) {
   int* s_nrows = reinterpret_cast<int*>(s_theta + W);  // 1
   uint8_t* s_act = reinterpret_cast<uint8_t*>(s_nrows + 1);  // W
   uint8_t* s_chosen = s_act + W;  // W
-  uint8_t* s_node = s_chosen + W;  // n
 
   const float* pf = a.pf + b * 8;
   const int* pi = a.pi + b * 4;
-  const float p_fail = pf[0], p_nfail = pf[1], p_lfail = pf[2];
-  const float p_nrec = pf[3], p_lrec = pf[4], eps = pf[5], eps2 = pf[6],
-              p_fork = pf[7];
+  const float p_fail = pf[0], eps = pf[5], eps2 = pf[6], p_fork = pf[7];
   const int t = pi[0], byz_node = pi[1], pac_node = pi[2];
   const bool enabled = pi[3] > 0;
   const size_t bn = static_cast<size_t>(b) * n;
@@ -157,20 +184,7 @@ __global__ void __launch_bounds__(kThreads) whole_round_kernel(Round a) {
   auto slot = [&](int w) { return w == threadIdx.x ? mine : load_slot(a, bw, w); };
   if (threadIdx.x == 0) *s_nrows = 0;
 
-  // (1) topology: node crash / recovery, symmetrized link fail / recovery
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const bool up = a.node_up[bn + i];
-    const bool crash = a.u_nfail[bn + i] < p_nfail;
-    const bool recov = a.u_nrec[bn + i] < p_nrec;
-    const bool sched = a.sched[bn + i];
-    const bool nu = up ? !(crash || sched) : (recov && !sched);
-    s_node[i] = nu;
-    a.node_out[bn + i] = nu;
-  }
-  for (int e = threadIdx.x; e < n * D; e += blockDim.x) {
-    const size_t k = bn * D + e;
-    a.edge_out[k] = a.edge_up[k] ? !(a.e_fail[k] < p_lfail) : (a.e_rec[k] < p_lrec);
-  }
+  const uint8_t* node = a.node_out + bn;  // (1)'s node liveness, written before this launch
   __syncthreads();
 
   // (2) walk epilogue: resident kills, the masked rank-select hop and
@@ -178,21 +192,21 @@ __global__ void __launch_bounds__(kThreads) whole_round_kernel(Round a) {
   for (int w = threadIdx.x; w < W; w += blockDim.x) {
     const Slot sl = slot(w);
     int p = sl.pos;
-    const bool here = s_node[p];
+    const bool here = node[p];
     bool act = sl.active && here;
     const int deg = a.degs[p];
     const int* nb = a.nbrs + static_cast<size_t>(p) * D;
     const uint8_t* eu = a.edge_out + (bn + p) * D;
-    const unsigned m0 = here ? avail_bits(s_node, nb, eu, deg, D, 0) : 0u;
+    const unsigned m0 = here ? avail_bits(node, nb, eu, deg, D, 0) : 0u;
     int adeg = __popc(m0);
     for (int k0 = 32; k0 < D && here; k0 += 32) {
-      adeg += __popc(avail_bits(s_node, nb, eu, deg, D, k0));
+      adeg += __popc(avail_bits(node, nb, eu, deg, D, k0));
     }
     if (act && adeg > 0) {
       // the idx-th available neighbour, in slot order
       int idx = min(static_cast<int>(__fmul_rn(sl.u_move, __int2float_rn(adeg))), adeg - 1);
       for (int k0 = 0;; k0 += 32) {
-        unsigned m = k0 == 0 ? m0 : avail_bits(s_node, nb, eu, deg, D, k0);
+        unsigned m = k0 == 0 ? m0 : avail_bits(node, nb, eu, deg, D, k0);
         const int c = __popc(m);
         if (idx < c) {
           for (; idx > 0; --idx) m &= m - 1;
@@ -360,13 +374,18 @@ extern "C" int whole_round_launch(
   a.K = K;
   a.plus = plus;
   a.vec = hist_rows_vec(hist, B);
-  const size_t smem = (4 * static_cast<size_t>(W) + 1) * 4 + 2 * static_cast<size_t>(W) + n;
+  if (batch > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);  // grid.y
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 tiles((n + kTopoNodes - 1) / kTopoNodes, batch);
+  whole_round_topology_kernel<<<tiles, kTopoNodes, 0, st>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t smem = (4 * static_cast<size_t>(W) + 1) * 4 + 2 * static_cast<size_t>(W);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        whole_round_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    e = cudaFuncSetAttribute(whole_round_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  whole_round_kernel<<<batch, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(a);
+  whole_round_kernel<<<batch, kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

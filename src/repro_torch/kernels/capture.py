@@ -15,12 +15,17 @@ raises, and nothing here falls back to running the work eagerly.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from repro_torch.kernels import KERNELS
 
 _KERNEL_NODE = 0  # CU_GRAPH_NODE_TYPE_KERNEL
+# one capture at a time in a process: the blocks of a spread sweep run in
+# threads of their own, and each captures its runner's round at its first
+# run; their replays and eager work overlap freely
+_CAPTURE_LOCK = threading.Lock()
 
 
 class _KernelNodeParams(ctypes.Structure):
@@ -127,17 +132,21 @@ class Captured:
     another thread's CUDA work (a caller of ``api.service``, whose worker
     thread captures) neither breaks the capture nor fails itself. The
     default ``global`` mode would fail any such call from any thread
-    ("operation not permitted when stream is capturing")."""
+    ("operation not permitted when stream is capturing"). Captures in a
+    process take turns (a lock): the blocks of a spread sweep capture in
+    threads of their own."""
 
     def __init__(self, fn, warmup):
-        stream = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            warmup()
-        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
-            fn()
-        torch.cuda.current_stream().wait_stream(stream)
+        with _CAPTURE_LOCK:
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                warmup()
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(self.graph, stream=stream,
+                                  capture_error_mode="thread_local"):
+                fn()
+            torch.cuda.current_stream().wait_stream(stream)
         names = kernel_node_names(self.graph.raw_cuda_graph())
         self.kernel_nodes = len(names)
         self.per_replay = launches_per_replay(names)

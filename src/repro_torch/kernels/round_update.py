@@ -11,9 +11,11 @@ and the node sums of every row. It replaces
 default): topology step, resident kills, the masked rank-select hop,
 walk failures, observation, per-walk theta, the pairwise choose and the
 fork / terminate masks. It replaces ``whole_round_pallas``
-(``csrc/whole_round.cu``). Every uniform is drawn by the caller and
-enters as data; fork and terminate execution stays outside, as in the
-reference.
+(``csrc/whole_round.cu``): two launches on the current stream, a
+node-tiled topology pass and one CTA per trajectory for the rest, whose
+shared memory does not grow with n, so any graph size runs. Every
+uniform is drawn by the caller and enters as data; fork and terminate
+execution stays outside, as in the reference.
 
 Both update ``last_seen`` / ``hist`` / ``total`` in place (a round
 touches W rows of an n-row table) and return them. Each has a plain
@@ -230,4 +232,6 @@ def whole_round(
 
 
 whole_round.launches = 0
-whole_round.symbols = ("whole_round_kernel",)  # its kernel's device function
+# its kernel's device function: a call is one launch, counted at the
+# per-trajectory kernel (each call's topology launch goes with it)
+whole_round.symbols = ("whole_round_kernel",)

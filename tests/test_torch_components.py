@@ -24,6 +24,19 @@ from repro_torch.graphs.state import GraphState as TGraphState  # noqa: E402
 from repro_torch.utils import prng  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: under xdist the workers share the
+    cores, and a torch thread per core slows many small ops a
+    hundredfold."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tiny_payload(max_walks):
     """An RW-SGD payload of a 1-layer d 16 model (vocabulary 32)."""
     from repro_torch.data import make_markov_task

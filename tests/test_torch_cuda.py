@@ -959,3 +959,139 @@ def test_cuda_sharded_step_gloo_world_2_is_world_1(cuda):
     one = spawn_run(state, graph, pcfg, 200, world=1, device="cuda", backend="nccl")
     two = spawn_run(state, graph, pcfg, 200, world=2, device="cuda", backend="gloo")
     _same_state(two, one["state"], one["z"])
+
+
+def _cayley_neighbors(n, degree, seed):
+    """A ``degree``-regular Cayley graph of Z_n (node i joins i +- o_k for
+    offsets o_k coprime with n), built in O(n D): ``make_graph`` fills a
+    dense n x n adjacency."""
+    rng = np.random.default_rng(seed)
+    while True:
+        offs = rng.choice(np.arange(1, n // 2), degree // 2, replace=False)
+        if np.gcd.reduce(np.append(offs, n)) == 1:
+            break
+    i = np.arange(n)[:, None]
+    return np.concatenate([(i + offs) % n, (i - offs) % n], axis=1).astype(np.int32)
+
+
+@pytest.mark.parametrize("plus", [False, True])
+@pytest.mark.parametrize("n", [131_072, 262_144, 1_048_576])
+def test_cuda_whole_round_at_large_n_bitwise(cuda, plus, n):
+    """The reference's production widths (W 64, B 512, degree 16) on a
+    Cayley graph, below (131,072) and above (262,144, 1,048,576) the
+    ~231,000 nodes at which the one-CTA-per-trajectory kernel's shared
+    ``node_up`` copy outgrew a Hopper block: bitwise the plain version,
+    one launch counted per call. Inputs come from a seeded device
+    generator (the tables hold up to 2 GB)."""
+    batch, W, C, B, D, K = 2, 64, 64, 512, 16, 2
+    gen = torch.Generator(device=cuda).manual_seed(n + plus)
+    uni = lambda *s: torch.rand(s, generator=gen, device=cuda)  # noqa: E731
+    ints = lambda lo, hi, *s, dtype=torch.int32: torch.randint(  # noqa: E731
+        lo, hi, s, generator=gen, device=cuda, dtype=dtype)
+    nbrs = torch.as_tensor(_cayley_neighbors(n, D, n), device=cuda)
+    params_f = torch.tensor([0.05, 0.1, 0.1, 0.3, 0.4, 7.0, 8.0, 0.5], device=cuda).repeat(batch, 1)
+    params_i = torch.tensor([70, 2, 4, 1], dtype=torch.int32, device=cuda).repeat(batch, 1)
+    hist = ints(0, 3, batch, n, B, dtype=torch.int16)
+    args = [
+        ints(-1, 70, batch, n, C), hist, hist.sum(2, dtype=torch.int32), uni(batch, n) < 0.85,
+        uni(batch, n, D) < 0.85, ints(0, n, batch, W),
+        torch.arange(W, dtype=torch.int32, device=cuda).repeat(batch, 1), uni(batch, W) < 0.8,
+        nbrs, torch.full((n,), D, dtype=torch.int32, device=cuda),
+        uni(batch, W), uni(batch, W), uni(batch, W), uni(batch, W), uni(batch, K, W),
+        ints(0, 4, batch, K), uni(batch, n), uni(batch, n), uni(batch, n) < 0.05,
+        uni(batch, n, D), uni(batch, n, D), params_f, params_i,
+    ]
+    before = whole_round.launches
+    _assert_same(whole_round(*[a.clone() for a in args], decafork_plus=plus),
+                 whole_round_plain(*[a.clone() for a in args], plus))
+    assert whole_round.launches == before + 1
+
+
+def test_cuda_sharded_captured_round_is_the_eager_round(cuda, tmp_path):
+    """``run_sharded`` over NCCL at world size 1 captures its round (one
+    runner, one graph) and is bitwise the eager round (``capture=False``)
+    and the CPU's one shard, over two runs with other keys and states
+    through the one capture; its replays issue no host synchronisation.
+    Asking for capture over gloo raises."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import make_sharded_step, run_sharded, shard_state
+    from repro_torch.launch.mesh import data_axes, make_local_mesh
+    from repro_torch.utils import prng
+
+    state, graph, pcfg, cpu, z = _sharded_case(1024, 8, 5, 120)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_local_mesh(device_type="cuda")
+        step = make_sharded_step(mesh, data_axes(mesh), 1024, pcfg)
+        assert step.backend == "nccl"
+        st, gr = shard_state(state, graph, mesh, data_axes(mesh), "cuda")
+        got, gz = run_sharded(step, st, gr, 120)
+        _same_state(dict(state=type(cpu)(*(x.cpu() for x in got)), z=gz.cpu()), cpu, z)
+        eager, ez = run_sharded(step, st, gr, 120, capture=False)
+        _same_state(dict(state=got, z=gz), eager, ez)
+        (runner,) = [r for (d, cap), r in step.runners.items() if cap]
+        assert runner.captured is not None and runner.captured.kernel_nodes > 0
+        # a new key and a mid-run state through the same capture, no sync
+        st2 = st._replace(key=prng.key(11, device=cuda))
+        want, wz = run_sharded(step, got._replace(key=st2.key), gr, 60, capture=False)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again, az = run_sharded(step, got._replace(key=st2.key), gr, 60)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        _same_state(dict(state=again, z=az), want, wz)
+        assert len(step.runners) == 2 and runner.captured is not None
+    finally:
+        dist.destroy_process_group()
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "gloo"), 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_local_mesh(device_type="cuda")
+        step = make_sharded_step(mesh, data_axes(mesh), 1024, pcfg)
+        st, gr = shard_state(state, graph, mesh, data_axes(mesh), "cuda")
+        with pytest.raises(ValueError, match="gloo"):
+            run_sharded(step, st, gr, 3, capture=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_cuda_split_sweep_is_the_one_device_sweep(cuda, monkeypatch):
+    """A sweep spread over two blocks on the card (``cuda:0`` twice, as
+    the placement's device list, each block with its own runner, slot and
+    host thread) is bitwise the one-device sweep on every field; each
+    block captures once and the DecAFork group launches whole_round once
+    per round per block, plus each capture's warm-up round."""
+    from repro_torch.api import Experiment, cache_stats
+    from repro_torch.api import placement
+    from repro_torch.api import plan as plan_mod
+    from repro_torch.core import FailureConfig, ProtocolConfig
+    from repro_torch.sweep import Scenario
+
+    steps, base = 60, dict(z0=6, max_walks=16, rt_bins=64, protocol_start=20,
+                           estimator_impl="auto")
+    scen = [Scenario(f"eps={e}", ProtocolConfig(eps=e, **base),
+                     FailureConfig(burst_times=(30,), burst_sizes=(3,), p_fail=0.01))
+            for e in (1.8, 2.0, 2.25, 2.5)]
+    g = make_graph("regular", 40, seed=0, degree=4)
+    plan_mod.clear_cache()
+    try:
+        one = Experiment(graph=g, scenarios=scen, steps=steps, outputs="full",
+                         device=cuda).plan().sweep_group(scen, seeds=3)
+        monkeypatch.setattr(placement, "_visible_devices",
+                            lambda device: [torch.device("cuda", 0)] * 2)
+        before = whole_round.launches
+        exp = Experiment(graph=g, scenarios=scen, steps=steps, outputs="full",
+                         placement="sharded", device=cuda)
+        two = exp.plan().sweep_group(scen, seeds=3)
+        assert whole_round.launches - before == 2 * (steps + 1)
+        assert cache_stats()["entries"] == 3 and cache_stats()["graphs_captured"] == 3
+        _equal_trees(two[0], one[0], "split sweep: final state")
+        _equal_trees(two[1], one[1], "split sweep: outputs")
+        res = exp.sweep(seeds=3)  # through sweep: the same rows, per scenario
+        for i, s in enumerate(scen):
+            assert torch.equal(res[s.name].z, one[1].z[3 * i:3 * i + 3])
+    finally:
+        plan_mod.clear_cache()

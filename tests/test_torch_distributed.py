@@ -10,7 +10,10 @@ and ``total``: whole numbers, exact in float32). Then the port over gloo
 at world size 2 (``("data",)``) and 4 (a (2, 2) ``("pod", "data")``
 mesh), in spawned processes, bitwise its one-shard run, and the
 world-size-4 run bitwise the reference's 4-device run (a subprocess
-with ``XLA_FLAGS`` set before JAX starts)."""
+with ``XLA_FLAGS`` set before JAX starts). The step's runner
+(``run_sharded`` through ``ShardedRunner``'s static buffers, eager on
+the CPU) is bitwise the bare step, and asking it to capture over gloo
+or on CPU tensors raises."""
 import concurrent.futures
 import functools
 import json
@@ -40,6 +43,7 @@ from repro_torch.core import estimator as est  # noqa: E402
 from repro_torch.core import walkers as wlk  # noqa: E402
 from repro_torch.core.distributed import (  # noqa: E402
     ShardedGraph,
+    ShardedProtocolState,
     gather_state,
     make_sharded_step,
     run_sharded,
@@ -388,3 +392,60 @@ def test_convert_round_trip(graph):
     st, z = run_sharded(make_sharded_step(None, ("data",), graph.n, ProtocolConfig(**LONG),
                                           partitionable=PART), state, gr, 1)
     assert int(st.t) == 1 and z.shape == (1,)
+
+
+# -- the runner: static buffers, eager here, captured on the card -----------
+
+
+def test_runner_is_the_bare_step(graph, long_args, long_port):
+    """``run_sharded`` runs the step through a ``ShardedRunner``'s static
+    buffers: the 300-round random-mask run in three calls (120 + 100 +
+    80 rounds, each from the last one's state) is bitwise the bare step's
+    rounds, the caller's state is not written, and one eager runner
+    serves every call."""
+    state, gr = convert.sharded_step_from_arrays(_numpy(long_args["random"]), "cpu")
+    before = [x.clone() for x in state]
+    step = make_sharded_step(None, ("data",), graph.n, ProtocolConfig(**LONG), partitionable=PART)
+    zs, st = [], state
+    for rounds in (120, 100, 80):
+        st, z = run_sharded(step, st, gr, rounds)
+        zs.append(z)
+    one = long_port["random"]
+    np.testing.assert_array_equal(torch.cat(zs).numpy(), [r[-1] for r in one])
+    for f, want in zip(FIELDS, one[-1]):
+        np.testing.assert_array_equal(getattr(st, f).numpy(), want, err_msg=f)
+    assert int(st.t) == ROUNDS and all(torch.equal(a, b) for a, b in zip(state, before))
+    assert list(step.runners) == [(torch.device("cpu"), False)]
+    assert step.runners[(torch.device("cpu"), False)].captured is None
+
+
+def test_capture_is_refused_over_gloo_and_on_the_cpu(graph, long_args, tmp_path):
+    """Gloo's collectives do not capture: ``capture=True`` over a gloo
+    group (world size 1 in this process) raises, and so does it on CPU
+    tensors with no collective; the default over gloo runs eagerly,
+    bitwise the one shard."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import data_axes, make_local_mesh
+
+    state, gr = convert.sharded_step_from_arrays(_numpy(long_args["random"]), "cpu")
+    pcfg = ProtocolConfig(**LONG)
+    one = make_sharded_step(None, ("data",), graph.n, pcfg, partitionable=PART)
+    assert one.backend is None
+    with pytest.raises(ValueError, match="tensors are on the cpu"):
+        run_sharded(one, state, gr, 3, capture=True)
+    want, wz = run_sharded(one, state, gr, 40)
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_local_mesh(device_type="cpu")
+        step = make_sharded_step(mesh, data_axes(mesh), graph.n, pcfg, partitionable=PART)
+        assert step.backend == "gloo"
+        with pytest.raises(ValueError, match="gloo's, which do not capture"):
+            run_sharded(step, state, gr, 3, capture=True)
+        got, z = run_sharded(step, state, gr, 40)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(z, wz)
+    for f in ShardedProtocolState._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f

@@ -68,6 +68,19 @@ DRIVERS = {"fig1": fig1_burst, "fig2": fig2_probabilistic, "fig3": fig3_byzantin
 WITH_BURSTS = ("fig1", "fig2", "fig5", "theory")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: under xdist the workers share the
+    cores, and a torch thread per core slows many small ops a
+    hundredfold."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def use_constants(monkeypatch, tiny: bool) -> None:
     """Set the reference scripts' module constants to the tiny setting or
     leave their defaults."""

@@ -54,6 +54,19 @@ AUTO_START = 30  # the auto runs' decisions, tiny setting
 DRIVERS = {"fig4": fig4_nodes, "fig6": fig6_graphs, "auto_eps": auto_eps}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: under xdist the workers share the
+    cores, and a torch thread per core slows many small ops a
+    hundredfold."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def use_constants(monkeypatch, tiny: bool) -> None:
     """Set the reference scripts' module constants to the tiny setting or
     leave their defaults."""

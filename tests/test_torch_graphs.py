@@ -26,6 +26,19 @@ CASES = [
 ]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: under xdist the workers share the
+    cores, and a torch thread per core slows many small ops a
+    hundredfold."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("family,n,seed,kw", CASES)
 def test_graph_and_mirror_identical(family, n, seed, kw):
     jg = jgen.make_graph(family, n, seed=seed, **kw)

@@ -32,6 +32,19 @@ from repro_torch.kernels import (  # noqa: E402
 BATCH = 2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: under xdist the workers share the
+    cores, and a torch thread per core slows many small ops a
+    hundredfold."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _obs_batch(n, C=16, B=64, W=16, seed=0):
     """``random_round_inputs`` rows stacked into a batch (numpy)."""
     rows = [

@@ -83,6 +83,19 @@ dryrun.main(["--arch", "dbrx-132b", "--shape", "train_4k", "--multi-pod", "--fsd
 
 
 @pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: under xdist the workers share the
+    cores, and a torch thread per core slows many small ops a
+    hundredfold."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def probe(tmp_path_factory):
     """The subprocess: DTensor local shapes, then the dry run."""
     out = tmp_path_factory.mktemp("dryrun")

@@ -35,6 +35,19 @@ from repro_torch.kernels import (  # noqa: E402
 )
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: under xdist the workers share the
+    cores, and a torch thread per core slows many small ops a
+    hundredfold."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _qkv(seed, B, S, H, KV, D, dtype=np.float32):
     rng = np.random.default_rng(seed)
     return tuple(rng.standard_normal(s).astype(dtype) for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))

@@ -41,6 +41,19 @@ ARCHS = ("yi_6b", "mamba2_1_3b")
 B, S = 2, 64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: under xdist the workers share the
+    cores, and a torch thread per core slows many small ops a
+    hundredfold."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _flat(tree, prefix=""):
     out = {}
     for k, v in tree.items():

@@ -16,6 +16,19 @@ PART = bool(jax.config.jax_threefry_partitionable)
 SEEDS = (0, 1, 7, 42, 12345, 2**31 - 1)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: under xdist the workers share the
+    cores, and a torch thread per core slows many small ops a
+    hundredfold."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _data(k):
     return np.asarray(jax.random.key_data(k)).astype(np.int64)
 

@@ -57,6 +57,19 @@ CARRY = ("t", "walks.pos", "walks.active", "walks.track", "last_seen", "rts.hist
          "rts.total", "byz_state", "graph.node_up", "graph.edge_up", "theta_hist")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: under xdist the workers share the
+    cores, and a torch thread per core slows many small ops a
+    hundredfold."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pkw(alg):
     return dict(algorithm=alg, z0=6, max_walks=16, rt_bins=64, eps=2.0 if alg == "decafork" else 3.0,
                 eps2=7.57)

@@ -92,6 +92,19 @@ MODES = {
 MODES["auto_eps/pallas"] = MODES["auto_eps/compare"][:2] + MODES["auto_eps/pallas"][2:]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: under xdist the workers share the
+    cores, and a torch thread per core slows many small ops a
+    hundredfold."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(spec, port: bool):
     pkw, fkw, tkw, jkw = spec
     P, F = (ProtocolConfig, FailureConfig) if port else (jprt.ProtocolConfig, jflr.FailureConfig)

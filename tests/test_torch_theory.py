@@ -21,6 +21,19 @@ HISTORIES = [
 ]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: under xdist the workers share the
+    cores, and a torch thread per core slows many small ops a
+    hundredfold."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _eq(got, want):
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 

@@ -62,6 +62,19 @@ CONFIG = dict(experiment="zoo", n=N, graph_seed=0, graph_kwargs={"k_bridges": 2}
 PORT_IMPL = dict(estimator_impl="auto")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: under xdist the workers share the
+    cores, and a torch thread per core slows many small ops a
+    hundredfold."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def port_experiment():
     return Experiment.from_config({**CONFIG, "protocol": {**PROTO, **PORT_IMPL},
                                    "outputs": "full", "device": "cpu",

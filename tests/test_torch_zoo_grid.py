@@ -49,6 +49,19 @@ CARRY = ("t", "walks.pos", "walks.active", "walks.track", "walks.prev", "walks.b
          "graph.edge_up", "theta_hist", "pacman_pos")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: under xdist the workers share the
+    cores, and a torch thread per core slows many small ops a
+    hundredfold."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _get(state, path):
     for part in path.split("."):
         state = getattr(state, part)
