@@ -48,11 +48,12 @@ from repro_torch.core import failures as flr
 from repro_torch.core import simulator as sim
 from repro_torch.core.outputs import RecordedOutputs
 from repro_torch.sweep.scenario import as_pair, group_scenarios, stack_configs
-from repro_torch.utils import prng
+from repro_torch.utils import prng, trace
 from repro_torch.utils.faults import fault_point
 from repro_torch.utils.tree import tree_map
 
-__all__ = ["Plan", "cache_stats", "clear_cache", "executable", "payload_key", "plan_signature"]
+__all__ = ["Plan", "cache_stats", "clear_cache", "executable", "payload_key", "plan_signature",
+           "runners"]
 
 # the process-wide executable cache: (mode, signature) -> RoundRunner
 _EXECUTABLES: dict = {}
@@ -149,6 +150,13 @@ def cache_stats() -> dict:
         "graphs_captured": sum(by_mode.values()),
         "by_mode": by_mode,
     }
+
+
+def runners() -> list:
+    """Every cached runner, in the order the cache made them (each holds
+    its captured round, ``runner.graph``, once it has run on CUDA)."""
+    with _CACHE_LOCK:
+        return list(_EXECUTABLES.values())
 
 
 def clear_cache() -> None:
@@ -268,7 +276,8 @@ class Plan:
         runner = executable(mode, sig, lambda: sim.RoundRunner(
             setup, self.spec, decision, self.payload, self.pspec))
         if segment_steps is None:
-            state, carry = sim.init_carry(keys, setup, self.payload)
+            with trace.span("init_carry"):
+                state, carry = sim.init_carry(keys, setup, self.payload)
             return runner.run(state, setup, carry)
         return self._drive_segments(mode, runner, keys, setup, segment_steps, store, skey)
 
@@ -460,6 +469,10 @@ class Plan:
         gives its scenarios the ensemble's keys, and the blocks' results
         are gathered on the plan's device in row order, bitwise the
         one-device batch."""
+        with trace.span("sweep_group", scenarios=len(scenarios), seeds=seeds):
+            return self._sweep_group(scenarios, seeds, base_key, segment_steps, store, skey)
+
+    def _sweep_group(self, scenarios, seeds, base_key, segment_steps, store, skey):
         group = self._group(scenarios, seeds, base_key)
         S = len(scenarios)
         devices = self.experiment.placement.devices(self.device, S)
@@ -492,12 +505,14 @@ class Plan:
                      shard: tuple | None = None, segment_steps=None, store=None, skey=None):
         """Scenarios ``[lo, hi)`` of ``group`` as ``(hi - lo) * seeds`` rows
         on ``device`` (:meth:`sweep_group`'s result for them)."""
-        keys = prng.split(_as_key(base_key, device), seeds, partitionable=self.partitionable)
-        setup = sim.make_setup(
-            self.graph, [p for p in group["pcfgs"][lo:hi] for _ in range(seeds)],
-            [f for f in group["fcfgs"][lo:hi] for _ in range(seeds)], self.steps, device,
-            self.partitionable,
-        )
+        with trace.span("keys"):
+            keys = prng.split(_as_key(base_key, device), seeds, partitionable=self.partitionable)
+        with trace.span("make_setup"):
+            setup = sim.make_setup(
+                self.graph, [p for p in group["pcfgs"][lo:hi] for _ in range(seeds)],
+                [f for f in group["fcfgs"][lo:hi] for _ in range(seeds)], self.steps, device,
+                self.partitionable,
+            )
         return self._execute("sweep", keys.repeat(hi - lo, 1), setup, group["fcfgs"][0],
                              group["decision"], segment_steps=segment_steps, store=store,
                              skey=skey, shard=shard)

@@ -49,7 +49,6 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -81,7 +80,7 @@ from repro_torch.kernels import platform
 from repro_torch.kernels.capture import Captured
 from repro_torch.kernels.round_update import round_update, whole_round
 from repro_torch.kernels.theta_survival import theta_sums
-from repro_torch.utils import prng
+from repro_torch.utils import prng, trace
 from repro_torch.utils.tree import copy_into, tree_clone, tree_leaves
 
 
@@ -315,40 +314,46 @@ def protocol_step_unfused(state: SimState, setup: Setup):
     part = setup.partitionable
     pcfg, prows, frows = setup.pcfg, setup.prows, setup.frows
     nbr, deg = setup.neighbors, setup.degrees
-    k_move, k_pfail, k_burst, k_byz, k_dec, k_topo = _stream_keys(state, setup)
+    with trace.stage("keys"):
+        k_move, k_pfail, k_burst, k_byz, k_dec, k_topo = _stream_keys(state, setup)
     t = state.t
     ws = state.walks
     n_before = ws.active.sum(dim=1, dtype=torch.int32)
 
     # 1. topology (scheduled edge cuts included); a crashing node kills
     # its resident walks
-    gs = flr.step_topology(state.graph, t, frows, k_topo, nbr, setup.mirror, partitionable=part)
-    ws = ws._replace(active=flr.kill_resident_walks(ws.active, ws.pos, gs.node_up))
-    avail = availability(gs, nbr, deg)
-    # 1b. a mobile Pac-Man hops over the same live topology, on its own
-    # stream (tag 7)
-    pac_pos = state.pacman_pos
-    if setup.fcfg.pacman_mobile:
-        k_pac = prng.fold_in_time(state.key, t, 7)
-        pac_pos = flr.step_mobile_pacman(pac_pos, t, frows, k_pac, nbr, avail,
-                                         partitionable=part)
+    with trace.stage("topology"):
+        gs = flr.step_topology(state.graph, t, frows, k_topo, nbr, setup.mirror,
+                               partitionable=part)
+        ws = ws._replace(active=flr.kill_resident_walks(ws.active, ws.pos, gs.node_up))
+        avail = availability(gs, nbr, deg)
+        # 1b. a mobile Pac-Man hops over the same live topology, on its own
+        # stream (tag 7)
+        pac_pos = state.pacman_pos
+        if setup.fcfg.pacman_mobile:
+            k_pac = prng.fold_in_time(state.key, t, 7)
+            pac_pos = flr.step_mobile_pacman(pac_pos, t, frows, k_pac, nbr, avail,
+                                             partitionable=part)
     # 2. movement over the available edges (the zoo's variants by their rule)
-    if pcfg.walk_variant == "uniform":
-        ws = wlk.move_walks(ws, nbr, deg, k_move, avail, partitionable=part)
-    else:
-        from repro_torch.zoo.variants import move_variant
+    with trace.stage("hop"):
+        if pcfg.walk_variant == "uniform":
+            ws = wlk.move_walks(ws, nbr, deg, k_move, avail, partitionable=part)
+        else:
+            from repro_torch.zoo.variants import move_variant
 
-        ws = move_variant(ws, pcfg, prows, nbr, deg, k_move, avail, gs.node_up,
-                          partitionable=part)
+            ws = move_variant(ws, pcfg, prows, nbr, deg, k_move, avail, gs.node_up,
+                              partitionable=part)
     # 3. walk-level threat models
-    active = flr.apply_probabilistic_failures(ws.active, t, frows, k_pfail, partitionable=part)
-    active = flr.apply_burst_failures(active, t, frows, k_burst, partitionable=part)
-    active, byz_state = flr.step_byzantine(
-        active, ws.pos, t, state.byz_state, frows, k_byz, partitionable=part
-    )
-    active = flr.apply_pacman(active, ws.pos, t, frows, pac_pos)
-    ws = ws._replace(active=active)
-    n_failed = n_before - active.sum(dim=1, dtype=torch.int32)
+    with trace.stage("failures"):
+        active = flr.apply_probabilistic_failures(ws.active, t, frows, k_pfail,
+                                                  partitionable=part)
+        active = flr.apply_burst_failures(active, t, frows, k_burst, partitionable=part)
+        active, byz_state = flr.step_byzantine(
+            active, ws.pos, t, state.byz_state, frows, k_byz, partitionable=part
+        )
+        active = flr.apply_pacman(active, ws.pos, t, frows, pac_pos)
+        ws = ws._replace(active=active)
+        n_failed = n_before - active.sum(dim=1, dtype=torch.int32)
 
     # 4. observations for all visitors; the round_update kernel fuses
     # them with the node sums where those are the estimate
@@ -356,68 +361,74 @@ def protocol_step_unfused(state: SimState, setup: Setup):
     decafork = pcfg.algorithm in prt.FUSED_ALGORITHMS
     fuse = impl == "fused" and decafork and setup.pi is None
     last_seen = state.last_seen
-    prev = est.gather_rows(last_seen, ws.pos).gather(2, ws.track.long()[..., None])[..., 0]
-    tc = t.view(-1, 1)
-    r = tc - prev
-    valid = active & (prev != est.NEVER) & (r >= 1)
-    upd = torch.where(active, tc, est.NEVER).to(torch.int32)
-    if fuse:
-        last_seen, hist, total, node_sums = round_update(
-            last_seen, state.rts.hist, state.rts.total, ws.pos, ws.track,
-            r, valid, upd, t,
-        )
-        rts = est.ReturnTimeState(hist, total)
-    else:
-        rts = est.record_returns(state.rts, ws.pos, r, valid)
-        est.scatter_max_last_seen(last_seen, ws.pos, ws.track, upd)
+    with trace.stage("observation"):
+        prev = est.gather_rows(last_seen, ws.pos).gather(2, ws.track.long()[..., None])[..., 0]
+        tc = t.view(-1, 1)
+        r = tc - prev
+        valid = active & (prev != est.NEVER) & (r >= 1)
+        upd = torch.where(active, tc, est.NEVER).to(torch.int32)
+        if fuse:
+            last_seen, hist, total, node_sums = round_update(
+                last_seen, state.rts.hist, state.rts.total, ws.pos, ws.track,
+                r, valid, upd, t,
+            )
+            rts = est.ReturnTimeState(hist, total)
+        else:
+            rts = est.record_returns(state.rts, ws.pos, r, valid)
+            est.scatter_max_last_seen(last_seen, ws.pos, ws.track, upd)
 
     # 5. estimation and decisions for the chosen walks
-    chosen = prt.choose_walks(ws.pos, active, setup.n)
-    enabled = t >= prows.protocol_start
     theta_hist = state.theta_hist
     batch, W = ws.pos.shape
-    if decafork:
-        if fuse:
-            theta = est.theta_hat_from_node_sums(node_sums, ws.pos)
-        elif impl == "gather" or setup.pi is not None:
-            theta = est.theta_hat_rows(
-                last_seen, rts.hist, rts.total, t, ws.pos, ws.track,
-                pi=setup.pi, max_elapsed=setup.steps,
+    with trace.stage("decisions"):
+        chosen = prt.choose_walks(ws.pos, active, setup.n)
+        enabled = t >= prows.protocol_start
+        if decafork:
+            if fuse:
+                theta = est.theta_hat_from_node_sums(node_sums, ws.pos)
+            elif impl == "gather" or setup.pi is not None:
+                theta = est.theta_hat_rows(
+                    last_seen, rts.hist, rts.total, t, ws.pos, ws.track,
+                    pi=setup.pi, max_elapsed=setup.steps,
+                )
+            else:
+                theta = _node_sum_theta(impl, last_seen, rts, t, ws.pos)
+            eps = eps2 = None
+            if pcfg.auto_eps:
+                # per-node thresholds from the warm-up theta-hat histogram:
+                # each chosen walk adds an exact 1.0 to its node's bin
+                TB = theta_hist.shape[2]
+                b = torch.clamp(
+                    (theta / prows.theta_bin_width.view(-1, 1)).to(torch.int32), 0, TB - 1
+                )
+                w = (chosen & ~enabled.view(-1, 1)).to(torch.float32)
+                flat = (est._flat_rows(batch, setup.n, ws.pos) * TB + b.long()).reshape(-1)
+                theta_hist.view(-1).index_put_((flat,), w.reshape(-1), accumulate=True)
+                eps, eps2 = prt.theta_quantile_thresholds(theta_hist, ws.pos, prows)
+            fork_mask, term_mask = prt.decafork_decisions(
+                theta, chosen, k_dec, prows, enabled, pcfg.algorithm == "decafork+",
+                eps, eps2, partitionable=part,
             )
-        else:
-            theta = _node_sum_theta(impl, last_seen, rts, t, ws.pos)
-        eps = eps2 = None
-        if pcfg.auto_eps:
-            # per-node thresholds from the warm-up theta-hat histogram:
-            # each chosen walk adds an exact 1.0 to its node's bin
-            TB = theta_hist.shape[2]
-            b = torch.clamp(
-                (theta / prows.theta_bin_width.view(-1, 1)).to(torch.int32), 0, TB - 1
-            )
-            w = (chosen & ~enabled.view(-1, 1)).to(torch.float32)
-            flat = (est._flat_rows(batch, setup.n, ws.pos) * TB + b.long()).reshape(-1)
-            theta_hist.view(-1).index_put_((flat,), w.reshape(-1), accumulate=True)
-            eps, eps2 = prt.theta_quantile_thresholds(theta_hist, ws.pos, prows)
-        fork_mask, term_mask = prt.decafork_decisions(
-            theta, chosen, k_dec, prows, enabled, pcfg.algorithm == "decafork+",
-            eps, eps2, partitionable=part,
-        )
-        ws, last_seen, n_forks, n_terms, fork_parent, theta_mean = _decafork_tail(
-            ws, last_seen, t, theta, chosen, fork_mask, term_mask
-        )
-    else:
-        zeros = torch.zeros((batch,), dtype=torch.int32, device=t.device)
-        n_terms, theta_mean = zeros, zeros.float()
-        term_mask = torch.zeros_like(active)
-        if pcfg.algorithm == "missingperson":
+        elif pcfg.algorithm == "missingperson":
             ev = prt.missingperson_decisions(
                 last_seen, ws.pos, ws.track, chosen, t, k_dec, prows, enabled,
                 partitionable=part,
             )  # (batch, W, C): only initial-id columns (< z0) can fire
-            ws, last_seen, n_forks, fork_parent = wlk.execute_grid_forks(ws, last_seen, ev, t)
-        else:  # "none": the walks with no self-regulation
-            n_forks = zeros
-            fork_parent = torch.full_like(ws.pos, -1)
+    with trace.stage("slots"):
+        if decafork:
+            ws, last_seen, n_forks, n_terms, fork_parent, theta_mean = _decafork_tail(
+                ws, last_seen, t, theta, chosen, fork_mask, term_mask
+            )
+        else:
+            zeros = torch.zeros((batch,), dtype=torch.int32, device=t.device)
+            n_terms, theta_mean = zeros, zeros.float()
+            term_mask = torch.zeros_like(active)
+            if pcfg.algorithm == "missingperson":
+                ws, last_seen, n_forks, fork_parent = wlk.execute_grid_forks(
+                    ws, last_seen, ev, t)
+            else:  # "none": the walks with no self-regulation
+                n_forks = zeros
+                fork_parent = torch.full_like(ws.pos, -1)
     return _round_result(state, ws, last_seen, rts, byz_state, gs, theta_hist, n_failed,
                          n_forks, n_terms, fork_parent, theta_mean, term_mask, pac_pos)
 
@@ -427,58 +438,64 @@ def protocol_step_fused(state: SimState, setup: Setup):
     here from the streams the unfused sequence consumes."""
     part = setup.partitionable
     pcfg, prows, frows = setup.pcfg, setup.prows, setup.frows
-    k_move, k_pfail, k_burst, k_byz, k_dec, k_topo = _stream_keys(state, setup)
+    with trace.stage("keys"):
+        k_move, k_pfail, k_burst, k_byz, k_dec, k_topo = _stream_keys(state, setup)
     t = state.t
     ws = state.walks
     W = ws.pos.shape[1]
     K = frows.burst_times.shape[1]
     n_before = ws.active.sum(dim=1, dtype=torch.int32)
 
-    # the walk-sized uniforms in one draw: move, pfail, fork, term, bursts
-    dec = prng.split(k_dec, 2, partitionable=part)
-    walk_keys = [k_move[None], k_pfail[None], dec[:, 0][None], dec[:, 1][None]]
-    if K:
-        ids = torch.arange(K, device=t.device).view(K, 1)
-        walk_keys.append(prng.fold_in(k_burst, ids))
-    u = prng.uniform(torch.cat(walk_keys), (W,), partitionable=part)
-    u_burst = u[4:].transpose(0, 1).contiguous()
-    u_nfail, u_nrec, e_fail, e_rec = flr.topology_uniforms(
-        k_topo, setup.neighbors, setup.mirror, partitionable=part
-    )
-    sched = flr.scheduled_crash_mask(setup.n, t, frows)
-    # the Byzantine chain advances outside; the kernel needs the node
-    byz_state, byz_kill = flr.byzantine_kill_node(
-        t, state.byz_state, frows, k_byz, partitionable=part
-    )
-    enabled = t >= prows.protocol_start
-    params_f = torch.stack(
-        [
-            flr.gate(t, frows.p_fail_start, frows.p_fail),
-            flr.gate(t, frows.node_fail_start, frows.p_node_fail),
-            flr.gate(t, frows.link_fail_start, frows.p_link_fail),
-            frows.p_node_recover, frows.p_link_recover,
-            prows.eps, prows.eps2, prows.p,
-        ],
-        dim=1,
-    )
-    params_i = torch.stack(
-        [t, byz_kill, flr.pacman_kill_node(t, frows), enabled.to(torch.int32)], dim=1
-    ).to(torch.int32)
-    (last_seen, hist, total, node_up, edge_up, pos, active, theta, chosen,
-     fork_mask, term_mask) = whole_round(
-        state.last_seen, state.rts.hist, state.rts.total,
-        state.graph.node_up, state.graph.edge_up,
-        ws.pos, ws.track, ws.active, setup.neighbors, setup.degrees,
-        u[0], u[1], u[2], u[3], u_burst, flr.burst_sizes_eff(t, frows),
-        u_nfail, u_nrec, sched, e_fail.contiguous(), e_rec.contiguous(),
-        params_f, params_i,
-        decafork_plus=pcfg.algorithm == "decafork+",
-    )
+    with trace.stage("draws"):
+        # the walk-sized uniforms in one draw: move, pfail, fork, term, bursts
+        dec = prng.split(k_dec, 2, partitionable=part)
+        walk_keys = [k_move[None], k_pfail[None], dec[:, 0][None], dec[:, 1][None]]
+        if K:
+            ids = torch.arange(K, device=t.device).view(K, 1)
+            walk_keys.append(prng.fold_in(k_burst, ids))
+        u = prng.uniform(torch.cat(walk_keys), (W,), partitionable=part)
+        u_burst = u[4:].transpose(0, 1).contiguous()
+        u_nfail, u_nrec, e_fail, e_rec = flr.topology_uniforms(
+            k_topo, setup.neighbors, setup.mirror, partitionable=part
+        )
+    with trace.stage("gates"):
+        sched = flr.scheduled_crash_mask(setup.n, t, frows)
+        # the Byzantine chain advances outside; the kernel needs the node
+        byz_state, byz_kill = flr.byzantine_kill_node(
+            t, state.byz_state, frows, k_byz, partitionable=part
+        )
+        enabled = t >= prows.protocol_start
+        params_f = torch.stack(
+            [
+                flr.gate(t, frows.p_fail_start, frows.p_fail),
+                flr.gate(t, frows.node_fail_start, frows.p_node_fail),
+                flr.gate(t, frows.link_fail_start, frows.p_link_fail),
+                frows.p_node_recover, frows.p_link_recover,
+                prows.eps, prows.eps2, prows.p,
+            ],
+            dim=1,
+        )
+        params_i = torch.stack(
+            [t, byz_kill, flr.pacman_kill_node(t, frows), enabled.to(torch.int32)], dim=1
+        ).to(torch.int32)
+        sizes_eff = flr.burst_sizes_eff(t, frows)
+    with trace.stage("whole_round"):
+        (last_seen, hist, total, node_up, edge_up, pos, active, theta, chosen,
+         fork_mask, term_mask) = whole_round(
+            state.last_seen, state.rts.hist, state.rts.total,
+            state.graph.node_up, state.graph.edge_up,
+            ws.pos, ws.track, ws.active, setup.neighbors, setup.degrees,
+            u[0], u[1], u[2], u[3], u_burst, sizes_eff,
+            u_nfail, u_nrec, sched, e_fail.contiguous(), e_rec.contiguous(),
+            params_f, params_i,
+            decafork_plus=pcfg.algorithm == "decafork+",
+        )
     ws = ws._replace(pos=pos, active=active)
     n_failed = n_before - active.sum(dim=1, dtype=torch.int32)
-    ws, last_seen, n_forks, n_terms, fork_parent, theta_mean = _decafork_tail(
-        ws, last_seen, t, theta, chosen, fork_mask, term_mask
-    )
+    with trace.stage("slots"):
+        ws, last_seen, n_forks, n_terms, fork_parent, theta_mean = _decafork_tail(
+            ws, last_seen, t, theta, chosen, fork_mask, term_mask
+        )
     return _round_result(
         state, ws, last_seen, est.ReturnTimeState(hist, total), byz_state,
         GraphState(node_up, edge_up), state.theta_hist, n_failed,
@@ -665,15 +682,16 @@ class RoundRunner:
     def _round(self) -> None:
         """One round on the static buffers: the captured work."""
         new, out, carry, pout = self._step(self.state, self.carry)
-        for d, s in zip(tree_leaves((self.state, self.carry)), tree_leaves((new, carry))):
-            d.copy_(s)  # the next state in place (a no-op where updated in place)
-        for buf, f in zip(self.recorded, self.spec.fields):
-            buf.index_copy_(1, self.column, getattr(out, f).unsqueeze(1))
-        if self.payload is not None:
-            self._payload_buffers(pout)
-            for buf, v in zip(self.precorded, _payload_record(pout, self.pspec)):
-                buf.index_copy_(1, self.column, v.unsqueeze(1))
-        self.column.add_(1)
+        with trace.stage("commit"):
+            for d, s in zip(tree_leaves((self.state, self.carry)), tree_leaves((new, carry))):
+                d.copy_(s)  # the next state in place (a no-op where updated in place)
+            for buf, f in zip(self.recorded, self.spec.fields):
+                buf.index_copy_(1, self.column, getattr(out, f).unsqueeze(1))
+            if self.payload is not None:
+                self._payload_buffers(pout)
+                for buf, v in zip(self.precorded, _payload_record(pout, self.pspec)):
+                    buf.index_copy_(1, self.column, v.unsqueeze(1))
+            self.column.add_(1)
 
     def _warmup(self) -> None:
         """A real round on throwaway copies of the state and the carry
@@ -704,22 +722,23 @@ class RoundRunner:
         if rounds < 1 or start < 0 or start + rounds > self.steps:
             raise ValueError(f"rounds [{start}, {start + rounds}) outside the run's "
                              f"{self.steps} steps")
-        with self.lock:
+        with trace.span("run", rounds=rounds, batch=self.batch), self.lock:
             return self._run(state, setup, carry, rounds, outputs, start)
 
     def _run(self, state, setup, carry, rounds, outputs, start):
         cuda = self.column.is_cuda
         if cuda and self.done is not None:
             torch.cuda.current_stream().wait_event(self.done)
-        copy_into(_setup_tensors(self.setup), _setup_tensors(setup))
-        if self.state is None:
-            self.state, self.carry = tree_clone(state), tree_clone(carry)
-        else:
-            copy_into((self.state, self.carry), (state, carry))
+        with trace.span("copy_in"):
+            copy_into(_setup_tensors(self.setup), _setup_tensors(setup))
+            if self.state is None:
+                self.state, self.carry = tree_clone(state), tree_clone(carry)
+            else:
+                copy_into((self.state, self.carry), (state, carry))
         if cuda and self.graph is None:
-            t0 = time.perf_counter()
-            self.graph = Captured(self._round, warmup=self._warmup)
-            self.capture_s = time.perf_counter() - t0
+            with trace.span("capture") as sp:
+                self.graph = Captured(self._round, warmup=self._warmup, root="round")
+            self.capture_s = sp.seconds
         dev = self.column.device
         if outputs is None:
             outs = empty_recording(self.spec, self.batch, self.steps, self.walks, dev)
@@ -730,24 +749,29 @@ class RoundRunner:
             outs, pouts = tuple(outputs[0]), tuple(outputs[1])
         for c0 in range(start, start + rounds, self.chunk):
             n = min(self.chunk, start + rounds - c0)
-            self.column.zero_()
-            if cuda:
-                self.graph.replay(n)
+            with trace.span("chunk", start=c0, rounds=n):
+                self.column.zero_()
+                with trace.span("replay"):
+                    if cuda:
+                        self.graph.replay(n)
+                    else:
+                        for _ in range(n):
+                            self._round()
+                if pouts is None and self.payload is not None:
+                    pouts = tuple(torch.empty((b.shape[0], self.steps) + tuple(b.shape[2:]),
+                                              dtype=b.dtype, device=dev)
+                                  for b in self.precorded)
+                with trace.span("copy_out"):
+                    for o, b in zip(outs + (pouts or ()), self.recorded + (self.precorded or ())):
+                        o[:, c0:c0 + n].copy_(b[:, :n])
+        with trace.span("clone_out"):
+            rec = RecordedOutputs(self.spec.fields, outs)
+            if self.payload is None:
+                result = tree_clone(self.state), rec
             else:
-                for _ in range(n):
-                    self._round()
-            if pouts is None and self.payload is not None:
-                pouts = tuple(torch.empty((b.shape[0], self.steps) + tuple(b.shape[2:]),
-                                          dtype=b.dtype, device=dev) for b in self.precorded)
-            for o, b in zip(outs + (pouts or ()), self.recorded + (self.precorded or ())):
-                o[:, c0:c0 + n].copy_(b[:, :n])
-        rec = RecordedOutputs(self.spec.fields, outs)
-        if self.payload is None:
-            result = tree_clone(self.state), rec
-        else:
-            pstruct = (_payload_outputs(self.pout, self.pspec, pouts) if outputs is None
-                       else outputs[1])
-            result = ((tree_clone(self.state), tree_clone(self.carry)), (rec, pstruct))
+                pstruct = (_payload_outputs(self.pout, self.pspec, pouts) if outputs is None
+                           else outputs[1])
+                result = ((tree_clone(self.state), tree_clone(self.carry)), (rec, pstruct))
         if cuda:
             self.done = torch.cuda.Event()
             self.done.record()

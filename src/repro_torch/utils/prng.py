@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.utils import trace
+
 MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
@@ -38,16 +40,20 @@ def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
 
 def threefry2x32(k1, k2, x0, x1):
     """The threefry2x32 block hash on broadcastable int64 word tensors;
-    returns the two output words (int64 holding uint32 values)."""
-    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
-    x0 = (x0 + ks[0]) & MASK
-    x1 = (x1 + ks[1]) & MASK
-    for i in range(5):
-        for r in _ROT[i % 2]:
-            x0 = (x0 + x1) & MASK
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & MASK
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & MASK
+    returns the two output words (int64 holding uint32 values). Its work
+    is the ``threefry`` stage of whatever stage calls it, and it counts
+    its blocks (the broadcast output's elements) as ``threefry_blocks``."""
+    with trace.stage(trace.THREEFRY):
+        ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+        x0 = (x0 + ks[0]) & MASK
+        x1 = (x1 + ks[1]) & MASK
+        for i in range(5):
+            for r in _ROT[i % 2]:
+                x0 = (x0 + x1) & MASK
+                x1 = _rotl(x1, r) ^ x0
+            x0 = (x0 + ks[(i + 1) % 3]) & MASK
+            x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & MASK
+        trace.count("threefry_blocks", x0.numel())
     return x0, x1
 
 
